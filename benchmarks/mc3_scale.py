@@ -13,8 +13,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import jax.numpy as jnp
@@ -108,4 +106,7 @@ def run(n_objects=10_000, n_features=5_000, n_chains=4, chunk_steps=40):
 
 
 if __name__ == "__main__":
+    from sbayes_tpu.compile_cache import place_compile_cache
+
+    place_compile_cache()
     run(*[int(a) for a in sys.argv[1:]])

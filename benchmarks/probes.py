@@ -4,16 +4,13 @@
     python benchmarks/probes.py branch [family]        # per-operator-family cost
     python benchmarks/probes.py bigdata [N F S chains steps]  # large-data feasibility
 
-Replaces the round-1 branch_probe.py / scale_probe.py / scaling_probe.py
-trio (shared setup, one entry point).
+One shared setup, one entry point.
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +115,9 @@ def probe_bigdata(n_objects=2000, n_features=500, n_states=5, n_chains=64, chunk
 
 
 if __name__ == "__main__":
+    from sbayes_tpu.compile_cache import place_compile_cache
+
+    place_compile_cache()
     mode = sys.argv[1] if len(sys.argv) > 1 else "chains"
     rest = sys.argv[2:]
     if mode == "chains":

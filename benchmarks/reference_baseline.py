@@ -298,7 +298,7 @@ def main(n_steps=20000, real=False):
     steps_per_sec = n_steps / dt
 
     # ESS of the log-posterior trace with the same estimator used for the
-    # TPU sampler (sbayes_tpu.results.ess): apples-to-apples ESS/sec.
+    # JAX sampler (sbayes_tpu.results.ess): apples-to-apples ESS/sec.
     sys.path.insert(0, "/root/repo")
     from sbayes_tpu.results.ess import effective_sample_size
 

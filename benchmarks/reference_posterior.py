@@ -4,7 +4,7 @@ clause: "cluster posteriors matching within MCSE").
 
 Runs the shimmed reference (same harness as reference_baseline.py) on the
 real config at a reduced step count (the full 5M steps is ~16 h on this
-single-core host; VERDICT r2 explicitly allows a subsampled schedule) and
+single-core host, so the schedule is subsampled) and
 records:
 
   * per-object cluster membership samples (n_samples, K, N) bool

@@ -4,7 +4,7 @@ Runs the FULL operator schedule on a synthetic 10k objects x 5k features x
 5 states dataset, K=5 clusters, universal+family confounders, with the
 feature-tiled execution path (ModelConstants.feature_chunk, auto-enabled
 at this size) keeping every intermediate tile-sized and the XLA program
-compile-bounded. Single chip; prints setup/compile/steady-state timings.
+compile-bounded. One device; prints setup/compile/steady-state timings.
 
     python benchmarks/scale10k.py [n_objects n_features n_chains chunk_steps]
 """
@@ -13,8 +13,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 import faulthandler
 import signal
@@ -93,5 +91,8 @@ def run(n_objects=10_000, n_features=5_000, n_chains=2, chunk_steps=20):
 
 
 if __name__ == "__main__":
+    from sbayes_tpu.compile_cache import place_compile_cache
+
+    place_compile_cache()
     args = [int(a) for a in sys.argv[1:]]
     run(*args)

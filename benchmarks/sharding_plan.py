@@ -3,7 +3,7 @@
 Compiles the production ensemble chunk (SamplerRuntime._run_chunk) over a
 virtual chains x objects CPU mesh at a scaled-down 10k-shaped config
 (feature-tiled kernels) and summarizes the collectives XLA inserted —
-the documented sharding plan for benchmarks/SCALE10K.md.
+the sharding plan of the 10k x 5k scale point.
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python benchmarks/sharding_plan.py

@@ -2,20 +2,21 @@
 
 Mirrors the reference CLI contract (sbayes/cli.py): positional config file,
 ``-n/--name -t/--threads -r/--resume -K/--numClusters -i/--runID`` and one
-run per (run_id x n_clusters) combination. Runs execute sequentially by
-default — on TPU, within-run parallelism (vmapped chains) replaces the
-reference's process pool; ``--threads`` still fans runs out over processes
-for CPU-bound multi-run sweeps.
+run per (run_id x n_clusters) combination. Everything runs in this one
+process: the runs of one K are a single vmapped chain ensemble, which
+replaces the reference's process pool, and a second JAX process could not
+share the accelerator anyway. ``--threads`` is accepted for compatibility
+and changes nothing.
 """
 from __future__ import annotations
 
 import argparse
-import multiprocessing
 import warnings
 from copy import deepcopy
 from itertools import product
 from pathlib import Path
 
+from sbayes_tpu.compile_cache import place_compile_cache
 from sbayes_tpu.experiment import Experiment
 from sbayes_tpu.utils import PathLike, update_recursive
 
@@ -49,9 +50,8 @@ def run_experiment(
         mcmc.sample(run=i_run, resume=resume)
 
 
-def runner(args):
-    """Pool-map adapter running one (run_id, n_clusters) configuration."""
-    i_run, n_clusters, config, experiment_name, custom_settings, resume = args
+def run_one(i_run, n_clusters, config, experiment_name, custom_settings, resume):
+    """Run one (run_id, n_clusters) configuration as a single chain."""
     run_settings = deepcopy(custom_settings) if custom_settings else {}
     update_recursive(run_settings, {"model": {"clusters": n_clusters}, "mcmc": {"runs": 1}})
     run_experiment(
@@ -72,6 +72,11 @@ def main(
     n_clusters=None,
     i_run: int = None,
 ):
+    """Run every (run_id x n_clusters) combination of a config in this
+    process. ``processes`` is kept for CLI compatibility and ignored."""
+    place_compile_cache()
+    if processes > 1:
+        warnings.warn(f"--threads={processes} is ignored: all runs execute in this process.")
     experiment = Experiment(
         config_file=config,
         experiment_name=experiment_name,
@@ -94,9 +99,9 @@ def main(
 
     mc3_active = experiment.config.mcmc.mc3.activate
 
-    if processes <= 1 and len(i_run_range) > 1 and not resume and not mc3_active:
-        # TPU fast path: all runs of one K execute as a single vmapped
-        # ensemble (the reference loops them sequentially / via a pool).
+    if len(i_run_range) > 1 and not resume and not mc3_active:
+        # All runs of one K execute as a single vmapped ensemble (the
+        # reference loops them sequentially or through a process pool).
         for k in n_clusters:
             run_settings = deepcopy(custom_settings) if custom_settings else {}
             update_recursive(run_settings, {"model": {"clusters": int(k)}})
@@ -117,17 +122,8 @@ def main(
             mcmc.sample_ensemble(run_ids=i_run_range, resume=False)
         return
 
-    run_configurations = list(
-        product(i_run_range, n_clusters, [config], [experiment.experiment_name],
-                [custom_settings], [resume])
-    )
-
-    if processes <= 1:
-        for cfg in run_configurations:
-            runner(cfg)
-    else:
-        with multiprocessing.Pool(processes=processes) as pool:
-            pool.map(runner, run_configurations)
+    for i, k in product(i_run_range, n_clusters):
+        run_one(i, k, config, experiment.experiment_name, custom_settings, resume)
 
 
 def _ask_config_file_dialog() -> "str | None":
@@ -168,14 +164,14 @@ def _str2bool(v: str) -> bool:
 
 def cli(args=None):
     parser = argparse.ArgumentParser(
-        description="TPU-native MCMC to detect clusters in the presence of confounders."
+        description="MCMC on an accelerator to detect clusters in the presence of confounders."
     )
     parser.add_argument("config", type=Path, nargs="?",
                         help="The YAML (or JSON) configuration file")
     parser.add_argument("-n", "--name", nargs="?", type=str,
                         help="Experiment name (results directory; default: date/time).")
     parser.add_argument("-t", "--threads", nargs="?", type=int, default=1,
-                        help="Number of parallel run processes (default 1: sequential).")
+                        help="Accepted for compatibility; all runs execute in one process.")
     # NOT type=bool: argparse's bool("False") == True (the reference has
     # this wart, cli.py:142-146; fixed here). Bare `-r` means resume=True.
     parser.add_argument("-r", "--resume", nargs="?", type=_str2bool,
@@ -191,7 +187,7 @@ def cli(args=None):
     if config is None:
         # Reference parity (cli.py:161-173): ask for the config via a file
         # dialog when none was given. Only attempt the GUI on an interactive
-        # display; headless TPU pods get a readable error instead of a
+        # display; headless machines get a readable error instead of a
         # tkinter TclError traceback.
         config = _ask_config_file_dialog()
         if not config:

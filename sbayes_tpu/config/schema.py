@@ -6,7 +6,7 @@ reference sbayes/config/config.py:102-557 — sections ``data``, ``model``
 cluster_effect / confounding_effects), ``mcmc`` (steps, samples, operators,
 warmup, initialization, mc3, ...) and ``results``.
 
-Differences from the reference are deliberate and TPU-motivated:
+Differences from the reference are deliberate:
 * extra optional ``mcmc.chains`` (vmapped chain-ensemble size) and
   ``mcmc.precision`` knobs, defaulting to reference-equivalent behavior.
 """
@@ -19,7 +19,6 @@ from enum import Enum
 from pathlib import Path
 from typing import Annotated, Dict, List, Literal, Optional, Union
 
-import yaml
 from pydantic import (
     BaseModel,
     DirectoryPath,
@@ -305,7 +304,7 @@ class WarmupConfig(BaseConfig):
     """Number of steps in the warm-up phase."""
 
     warmup_chains: PositiveInt = 10
-    """Number of parallel chains in the warm-up phase (vmapped on TPU)."""
+    """Number of parallel chains in the warm-up phase (one vmapped batch)."""
 
 
 class InitializationConfig(BaseConfig):
@@ -495,6 +494,8 @@ class SBayesConfig(BaseConfig):
         with open(path, "r") as f:
             path_str = str(path).lower()
             if path_str.endswith(".yaml") or path_str.endswith("yml"):
+                import yaml
+
                 config_dict = yaml.safe_load(f)
             else:
                 config_dict = json.load(f)

@@ -5,7 +5,7 @@ Behavioral counterpart of the reference's ``sbayes/preprocessing.py`` (the
 Euclidean distance matrix; custom cost matrices from CSV with
 symmetrization).
 
-Implementation notes (TPU-rebuild deltas):
+Implementation notes (differences from the reference):
 * The reference uses pyproj+cartopy for geodesic distances on an ellipsoid.
   Those libraries are not available here; we implement the projection from
   the source CRS and geodesic distances ourselves: a WGS84 Vincenty inverse
@@ -239,12 +239,14 @@ def read_geo_cost_matrix(object_names, file: PathLike, logger=None) -> NDArray[n
 
     Mirrors reference behavior (sbayes/preprocessing.py:397-421).
     """
-    costs = read_costs_from_csv(file, logger=logger)
-    assert set(costs.columns) == set(object_names), (
+    row_names, col_names, costs = read_costs_from_csv(file, logger=logger)
+    assert set(col_names) == set(object_names), (
         "Cost matrix columns must match object IDs"
     )
-    costs = costs.loc[list(object_names), list(object_names)]
-    cost_matrix = np.asarray(costs, dtype=float)
+    row_of = {name: i for i, name in enumerate(row_names)}
+    col_of = {name: i for i, name in enumerate(col_names)}
+    cost_matrix = costs[np.ix_([row_of[o] for o in object_names],
+                               [col_of[o] for o in object_names])]
 
     if not np.allclose(cost_matrix, cost_matrix.T):
         cost_matrix = (cost_matrix + cost_matrix.T) / 2

@@ -14,11 +14,10 @@ from logging import Logger
 from typing import Optional
 
 import numpy as np
-import pandas as pd
 from numpy.typing import NDArray
 
 from sbayes_tpu.data.geo import ComputeNetwork, read_geo_cost_matrix
-from sbayes_tpu.utils import PathLike, encode_states, read_data_csv
+from sbayes_tpu.utils import PathLike, encode_states, read_csv_columns
 
 
 @dataclass
@@ -44,14 +43,16 @@ class Objects:
         return len(self.id)
 
     @classmethod
-    def from_dataframe(cls, data: pd.DataFrame) -> "Objects":
+    def from_columns(cls, data: dict) -> "Objects":
+        """From ``read_csv_columns`` output (columns ``id``, ``x``, ``y``
+        and optionally ``name``)."""
         try:
-            x = data["x"].astype(float)
-            y = data["y"].astype(float)
-            id_ext = data["id"].tolist()
+            x = np.asarray(data["x"], dtype=float)
+            y = np.asarray(data["y"], dtype=float)
+            id_ext = list(data["id"])
         except KeyError:
             raise KeyError("The csv must contain columns `x`, `y` and `id`")
-        locations = np.column_stack([x.to_numpy(), y.to_numpy()])
+        locations = np.column_stack([x, y])
         return cls(locations=locations, id=id_ext, names=list(data.get("name", id_ext)))
 
 
@@ -92,10 +93,14 @@ class Features:
         return [int(sum(applicable)) for applicable in self.states]
 
     @classmethod
-    def from_dataframes(cls, data: pd.DataFrame, feature_states: pd.DataFrame) -> "Features":
-        feature_data = data.loc[:, feature_states.columns]
-        features_dict, na_number = encode_states(feature_data, feature_states)
-        features_dict["names"] = feature_states.columns.to_numpy()
+    def from_columns(cls, data: dict, feature_states: dict) -> "Features":
+        """From ``read_csv_columns`` output of the data and feature-states
+        files; the feature-states columns name the features."""
+        missing = [c for c in feature_states if c not in data]
+        if missing:
+            raise KeyError(f"Features {missing} of the feature_states file are not in the data")
+        features_dict, na_number = encode_states(data, feature_states)
+        features_dict["names"] = np.asarray(list(feature_states))
         return cls(**features_dict, na_number=na_number)
 
 
@@ -119,24 +124,27 @@ class Confounder:
         return self.group_assignment.any(axis=0)
 
     @classmethod
-    def from_dataframe(cls, data: pd.DataFrame, confounder_name: str) -> "Confounder":
+    def from_columns(cls, data: dict, confounder_name: str) -> "Confounder":
         """Build the group partition from the confounder's CSV column.
 
         Behavioral contract (reference load_data.py:139-184): group names are
         the sorted distinct non-NA labels; a missing column means a single
-        ``<ALL>`` group over every object. Implemented as one factorize +
-        scatter instead of a per-group equality scan.
+        ``<ALL>`` group over every object.
         """
+        n_objects = len(next(iter(data.values())))
         if confounder_name not in data:
             return cls(
                 name=confounder_name,
-                group_assignment=np.ones((1, len(data)), dtype=bool),
+                group_assignment=np.ones((1, n_objects), dtype=bool),
                 group_names=["<ALL>"],
             )
-        codes, labels = pd.factorize(data[confounder_name], sort=True)  # NaN -> -1
-        assignment = np.zeros((len(labels), len(data)), dtype=bool)
-        labeled = codes >= 0
-        assignment[codes[labeled], np.flatnonzero(labeled)] = True
+        column = data[confounder_name]
+        labels = sorted({v for v in column if v is not None})
+        code_of = {g: i for i, g in enumerate(labels)}
+        assignment = np.zeros((len(labels), n_objects), dtype=bool)
+        for n, v in enumerate(column):
+            if v is not None:
+                assignment[code_of[v], n] = True
         return cls(name=confounder_name, group_assignment=assignment,
                    group_names=list(labels))
 
@@ -215,20 +223,20 @@ def read_features_from_csv(
     logger: Optional[Logger] = None,
 ):
     """Import objects, features and confounders from CSV files."""
-    data = read_data_csv(data_path)
-    feature_states = read_data_csv(feature_states_path)
+    data = read_csv_columns(data_path)
+    feature_states = read_csv_columns(feature_states_path)
 
-    features = Features.from_dataframes(data, feature_states)
-    objects = Objects.from_dataframe(data)
+    features = Features.from_columns(data, feature_states)
+    objects = Objects.from_columns(data)
     confounders = OrderedDict()
     for c in confounder_names:
-        confounders[c] = Confounder.from_dataframe(data=data, confounder_name=c)
+        confounders[c] = Confounder.from_columns(data=data, confounder_name=c)
 
     if logger:
         logger.info(
             f"{features.n_objects} objects with {features.n_features} features read from {data_path}."
         )
         logger.info(f"{features.na_number} NA value(s) found.")
-        logger.info(f"The maximum number of states in a single feature was {feature_states.shape[0]}.")
+        logger.info(f"The maximum number of states in a single feature was {features.n_states}.")
 
     return objects, features, confounders

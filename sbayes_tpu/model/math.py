@@ -1,16 +1,17 @@
 """Device-side (JAX) math kernels of the collapsed mixture model.
 
-These are the TPU-native equivalents of the reference's three Numba kernels
+These are the JAX equivalents of the reference's three Numba kernels
 and its NumPy likelihood math (reference: sbayes/util.py:1373-1394
 ``dirichlet_categorical_logpdf``, sbayes/model/likelihood.py:104-199
 ``compute_component_likelihood``/``normalize_weights``,
 sbayes/sampling/counts.py:10-52 sufficient-statistic counts).
 
 Design: everything is a fused full-recompute over static shapes. The
-sufficient-statistic counts are einsums that XLA lowers onto the MXU; the
-Dirichlet-categorical compound log-pdf is a masked lgamma reduction fused
-into the same program. There is no incremental caching — a single step
-recomputes the entire posterior, which on TPU is faster than bookkeeping.
+sufficient-statistic counts are einsums that XLA lowers to matrix
+products; the Dirichlet-categorical compound log-pdf is a masked lgamma
+reduction fused into the same program. A full recompute needs no
+incremental cache; the sampling kernel carries the counts and applies
+exact deltas between recomputes.
 """
 from __future__ import annotations
 
@@ -18,6 +19,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.scipy.special import gammaln
+
+
+# Every contraction of two float32 operands pins full float32 precision. At
+# default precision a GPU may run such dots in TF32 (a 10-bit mantissa),
+# which would perturb Gibbs conditionals, MH ratios and carried totals.
+# Dots with bfloat16 operands (the one-hot gathers and count matmuls over
+# 0/1 values, accumulated in float32) are exact as they are and keep the
+# default. tests/test_precision.py walks the compiled programs for any
+# float32 dot that lacks this pin.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def normalize(x, axis=-1):
@@ -98,12 +109,12 @@ def source_n_changed(a, b):
 # Row gather/scatter on the per-chain (N, F, C) source tensor.
 #
 # Under vmap, ``src[idx]`` / ``src.at[idx].set(rows)`` with per-chain
-# indices lower to batched TPU gathers/scatters — serialized scalar-core
-# loops (the same pathology the prim_mm MST engine fixes for cost-matrix
-# rows). For small tensors the one-hot MXU matmul form wins (measured
-# 1.6-1.7x standalone, far more in-scan: benchmarks/rows_gather_probe.py);
-# for large tensors the matmul re-reads all N rows, so the native
-# gather/in-place scatter stays. The cutover is by total source bytes.
+# indices lower to batched gathers/scatters. For small tensors these run
+# as one-hot matmuls instead (the form the prim_mm MST engine uses for
+# cost-matrix rows); for large tensors the matmul re-reads all N rows, so
+# the native gather/in-place scatter stays. The cutover is by total source
+# bytes; it was tuned on an earlier accelerator and has not been measured
+# on the GPU (ROADMAP Speed 3).
 # Preconditions of the matmul forms: indices are DISTINCT (every caller
 # draws without replacement / top_k / a single object) and index == N
 # means "padded, drop" (the one-hot row is all zero).
@@ -124,11 +135,10 @@ def compact_indices(mask, size: int, fill: int):
     """Ascending indices of True in ``mask`` (N,) bool, padded to ``size``
     with ``fill`` — the output contract of
     ``jnp.nonzero(mask, size=size, fill_value=fill)[0]``, computed via an
-    argsort instead of nonzero's cumsum+scatter (the vmapped batched
-    scatter is the slow part on TPU: 2.0 vs 1.2 ms/ensemble-step at the
-    wide op's shape; benchmarks/wide_probe.py ``stages``). Above 4096
-    objects the bitonic sort's log^2(N) passes lose to the scatter, so the
-    nonzero form (the measured state of the 10k-scale benchmarks) stays."""
+    argsort instead of nonzero's cumsum+scatter (avoids the vmapped
+    batched scatter). Above 4096 objects the sort's log^2(N) passes cost
+    more than the scatter, so the nonzero form stays. Both sides of the
+    cutover are still to be measured on the GPU (ROADMAP Speed 3)."""
     n = mask.shape[0]
     if n > 4096:
         return jnp.nonzero(mask, size=size, fill_value=fill)[0]
@@ -140,11 +150,9 @@ def compact_indices(mask, size: int, fill: int):
 
 def gather_const_rows(mat, idx):
     """``mat[idx]`` for a 0/1-valued shared constant ``mat`` (N, ...) with
-    per-chain row indices ``idx`` (m,) — one-hot MXU matmul when the whole
+    per-chain row indices ``idx`` (m,) — one-hot matmul when the whole
     matrix is small, native (clamping) gather when re-reading all N rows
-    would dominate. Measured at the wide op's shape (m=100, N=100):
-    0.12 vs 1.95 ms/ensemble-step for the vmapped native gather
-    (benchmarks/wide_probe.py ``stages``).
+    would dominate.
 
     Exact: one-hot rows carry a single 1, so the f32-accumulated dot
     returns each 0/1 row bitwise. Out-of-range idx -> all-zero row on the
@@ -163,8 +171,7 @@ def gather_const_rows(mat, idx):
 def gather_cols(mat, idx):
     """``mat[..., idx]`` for a 0/1-valued ``mat`` (..., N) with (m,) row
     indices — the minor-axis-gather counterpart of ``gather_const_rows``
-    (same pathology: vmapped batched gathers serialize on TPU; same
-    threshold; exact for 0/1 values, one nonzero per one-hot row).
+    (same threshold; exact for 0/1 values, one nonzero per one-hot row).
     Out-of-range idx -> all-zero column on the matmul path (callers mask
     padded entries by ``valid``). Returns f32."""
     n = mat.shape[-1]
@@ -179,7 +186,7 @@ def gather_rows(src, idx, n_components: int | None = None):
     """``src[idx]`` as bool one-hot rows (m, F, C); idx (m,) int (N = padded,
     yielding an all-zero row).
 
-    Engine-switched for the bool (N, F, C) form: one-hot MXU matmul at
+    Engine-switched for the bool (N, F, C) form: one-hot matmul at
     small sizes (exact: 0/1 operands, <=1 nonzero per one-hot row, f32
     accumulate), native gather (mode='fill') at large. For the PACKED
     int8 (N, F) form (``n_components`` required) the native gather moves
@@ -202,7 +209,7 @@ def scatter_rows(src, idx, rows):
     """``src.at[idx].set(rows, mode='drop')`` for bool src (N, F, C),
     DISTINCT idx (m,) int (N = padded/drop), rows (m, F, C) bool.
 
-    One-hot MXU matmul-add at small sizes (subtract the gathered old
+    One-hot matmul-add at small sizes (subtract the gathered old
     rows, add the new: exact integer arithmetic in f32), native in-place
     scatter at large. ``rows`` is always the bool one-hot (m, F, C) form;
     with a PACKED destination the rows are packed (argmax + sentinel C
@@ -218,7 +225,7 @@ def scatter_rows(src, idx, rows):
                   preferred_element_type=jnp.float32)            # (m, F*C)
     delta = rows.reshape(idx.shape[0], f * c).astype(jnp.float32) - old
     upd = jnp.dot(oh.T.astype(jnp.float32), delta,
-                  preferred_element_type=jnp.float32)            # (N, F*C)
+                  preferred_element_type=jnp.float32, precision=HIGHEST)  # (N, F*C)
     return ((flat.astype(jnp.float32) + upd) > 0.5).reshape(src.shape)
 
 
@@ -308,9 +315,9 @@ def feature_tile(x, i, f_chunk, axis=1):
 def compute_feature_counts(clusters, source, features, conf_groups, f_chunk=None):
     """Sufficient-statistic counts for all mixture components, fully fused.
 
-    The TPU equivalent of the incremental counts machinery
+    The full-recompute counterpart of the incremental counts machinery
     (reference: sbayes/sampling/counts.py:10-95 and state.py FeatureCounts):
-    one full recompute as MXU-friendly contractions.
+    one recompute as matrix-product contractions.
 
     Args:
         clusters: (K, N) cluster membership (bool or float).
@@ -341,14 +348,14 @@ def compute_feature_counts(clusters, source, features, conf_groups, f_chunk=None
         src0 = source_comp(source_t, 0, dtype)
         fx0 = feats_t * src0[:, :, None]
         cl = jnp.einsum("kn,nfs->kfs", clusters.astype(dtype), fx0,
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32, precision=HIGHEST)
         conf_parts = []
         for i_c in range(conf_groups.shape[0]):
             src_c = source_comp(source_t, 1 + i_c, dtype)
             fx_c = feats_t * src_c[:, :, None]
             conf_parts.append(jnp.einsum(
                 "gn,nfs->gfs", conf_groups[i_c].astype(dtype), fx_c,
-                preferred_element_type=jnp.float32,
+                preferred_element_type=jnp.float32, precision=HIGHEST
             ))
         conf = jnp.stack(conf_parts, axis=0)
         return cl, conf
@@ -438,10 +445,8 @@ def sample_categorical_onehot(key, p):
         bool (..., n_states) one-hot samples.
     """
     # Inverse-CDF draw: ONE uniform per categorical cell instead of the
-    # gumbel-max form's C gumbels (jax.random.categorical) — the PRNG u32
-    # bit-mix was the single largest op group in the source-op HLO census
-    # at the headline shape (benchmarks/source_hlo_probe.py, round 5),
-    # and this needs C x fewer bits and no per-lane log. Exactly
+    # gumbel-max form's C gumbels (jax.random.categorical): C x fewer
+    # random bits and no per-lane log. Exactly
     # categorical(p / p.sum()): u ~ U[0, total) via scaling by the last
     # cumsum entry (so u < cdf[-1] up to one final-ulp rounding, clamped);
     # all-zero rows (NA cells) deterministically yield the last category,

@@ -1,7 +1,7 @@
 """The full posterior as pure jittable functions over a flat state PyTree.
 
 This is the "forward pass" of the framework: one fused full recompute of
-  * sufficient-statistic feature counts (MXU einsums),
+  * sufficient-statistic feature counts (matrix-product einsums),
   * collapsed Dirichlet-categorical likelihood per mixture component
     (reference: sbayes/model/likelihood.py:47-101),
   * all priors: cluster size, geo (MST over the cost matrix), weights
@@ -21,6 +21,7 @@ from jax.scipy.special import gammaln
 
 from sbayes_tpu.model.constants import ModelConstants
 from sbayes_tpu.model.math import (
+    HIGHEST,
     dirichlet_categorical_logpdf,
     dirichlet_logpdf,
     compute_feature_counts,
@@ -54,27 +55,9 @@ class PosteriorParts(NamedTuple):
 class Posterior:
     """Pure functions evaluating likelihood and priors for a model."""
 
-    def __init__(self, consts: ModelConstants, sample_from_prior: bool = False,
-                 use_pallas: bool | None = None):
+    def __init__(self, consts: ModelConstants, sample_from_prior: bool = False):
         self.consts = consts
         self.sample_from_prior = sample_from_prior
-        # Optional fused full-likelihood Pallas kernel (ops/pallas_kernels.py),
-        # reachable from every production path via SBAYES_TPU_PALLAS_LOGLH=1.
-        # Default OFF by measurement: 1.03x at the VMEM-resident reference
-        # shape (benchmarks/pallas_vs_xla.py, ROOFLINE.md round 4) and the
-        # sampler carries counts so full recomputes only run at init/refresh
-        # — the XLA einsum path is equivalent (tests/test_pallas.py).
-        if use_pallas is None:
-            import os
-
-            use_pallas = os.environ.get("SBAYES_TPU_PALLAS_LOGLH") == "1"
-        self.use_pallas = use_pallas
-        self._pallas_loglh = None
-        if use_pallas:
-            from sbayes_tpu.ops.pallas_kernels import fits_in_vmem, make_pallas_log_likelihood
-
-            if fits_in_vmem(consts.K, consts.N, consts.F, consts.S, consts.C, consts.Gmax):
-                self._pallas_loglh = make_pallas_log_likelihood(consts)
 
     # ---------------- mixture components ----------------
 
@@ -112,9 +95,8 @@ class Posterior:
         ``log_likelihood_per_feature`` evaluations — the gammaln argument
         stacks are built identically for both states, so unchanged count
         cells produce bitwise-identical terms whose elementwise difference
-        is exactly 0 — but ~4x faster on TPU: the per-feature form keeps
-        the S(=n_states) axis minor, and S is typically far below the
-        128-lane VPU tile, so every gammaln pays a ~128/S padding tax.
+        is exactly 0 — but without the per-feature form's small minor
+        S(=n_states) axis, which pads every gammaln to the vector width.
         Here every gammaln argument (count cells of both tensors AND the
         per-(group, feature) totals) is flattened into ONE dense (X,)
         stack per state, evaluated lane-packed, subtracted, and reduced
@@ -141,14 +123,9 @@ class Posterior:
         sign = jnp.concatenate([jnp.ones(n_cells, jnp.float32),
                                 jnp.full((n_tot,), -1.0, jnp.float32)])
         d = gammaln(stack(cl_new, conf_new)) - gammaln(stack(cl_old, conf_old))
-        return jnp.dot(sign, d, preferred_element_type=jnp.float32)
+        return jnp.dot(sign, d, preferred_element_type=jnp.float32, precision=HIGHEST)
 
     def log_likelihood(self, state):
-        if self._pallas_loglh is not None:
-            from sbayes_tpu.model.math import source_onehot
-
-            src = source_onehot(state.source, self.consts.C)
-            return self._pallas_loglh(state.clusters[None], src[None])[0]
         cl_counts, conf_counts = self.feature_counts(state.clusters, state.source)
         return self.log_likelihood_from_counts(cl_counts, conf_counts)
 
@@ -177,7 +154,7 @@ class Posterior:
     def pattern_counts(self, clusters, source):
         """(P, F, C) source counts per availability pattern — the exact
         sufficient statistic of the weights likelihood (see
-        operators.make_gibbs_sample_weights). Full recompute: one MXU
+        operators.make_gibbs_sample_weights). Full recompute: one
         matmul streaming the source tensor (bf16 operands are exact for
         0/1 values, f32 accumulate); the sampling loop instead maintains
         ChainState.pat_counts by delta updates and only calls this from
@@ -260,17 +237,18 @@ class Posterior:
         to the BATCH-MAX size (one big cluster serializes every chain).
         'boruvka' — log-depth contraction (ops/boruvka.py): fixed
         ceil(log2 N) rounds of dense (N, N) reductions regardless of batch
-        composition. Env SBAYES_TPU_MST=prim|boruvka|auto; auto resolves
-        per benchmarks/geo_probe.py measurements (TPU: prim stays at the
-        dispatch floor for the headline shapes — see NEXT.md round 3)."""
+        composition. 'prim_mm' — Prim with the row select as a one-hot
+        matmul. Env SBAYES_TPU_MST=prim|prim_mm|boruvka|auto; auto picks a
+        Prim form by N (the choice is still to be measured on the GPU,
+        ROADMAP Speed 3)."""
         import os
 
         eng = os.environ.get("SBAYES_TPU_MST", "auto")
         if eng != "auto":
             return eng
         # prim_mm re-reads the whole (N, N) cost matrix per iteration
-        # through its MXU row-select; past ~2k objects the gather form's
-        # O(B·N) per-iteration traffic wins despite TPU gather latency.
+        # through its matmul row-select; past ~2k objects the gather form's
+        # O(B·N) per-iteration traffic is smaller.
         return "prim_mm" if self.consts.N <= 2048 else "prim"
 
     def _mst_triple(self, cost, mask):

@@ -1,10 +1,9 @@
-"""Log-depth MST aggregates via vectorized Boruvka (TPU-first design).
+"""Log-depth MST aggregates via vectorized Boruvka.
 
 ``ops/mst.py``'s masked Prim needs N-1 *sequential* iterations of tiny
-(N,) vector work — pure latency on a TPU, and the dominant cost of the
-cost_based geo prior (benchmarks/geo_probe.py). Boruvka contracts the
-graph in ceil(log2(N)) rounds of dense (N, N) reductions, which the VPU
-eats whole: every round each component picks its minimum outgoing edge
+(N,) vector work — latency-bound, and a candidate for the dominant cost
+of the cost_based geo prior. Boruvka contracts the graph in
+ceil(log2(N)) rounds of dense (N, N) reductions: every round each component picks its minimum outgoing edge
 (under a consistent total order), chosen edges are accumulated, and
 components merge by pointer jumping.
 

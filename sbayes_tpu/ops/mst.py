@@ -13,6 +13,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+HIGHEST = jax.lax.Precision.HIGHEST  # as sbayes_tpu.model.math.HIGHEST
+
 BIG = jnp.inf
 
 
@@ -37,7 +39,7 @@ def cluster_mst_edge_costs(cost, mask):
     # to the while-condition (instead of a fixed n-1 fori) exits as soon
     # as the tree is complete — under vmap, at the batch-max cluster
     # size. Typical clusters are far smaller than N, so this cuts the
-    # kernel's sequential depth (its entire cost on TPU) proportionally.
+    # kernel's sequential depth proportionally.
     m_edges = jnp.maximum(mask.sum().astype(jnp.int32) - 1, 0)
 
     def cond_fn(carry):
@@ -65,16 +67,16 @@ def cluster_mst_edge_costs(cost, mask):
 
 
 def cluster_mst_stats_prim(cost, mask):
-    """(total, count, max_edge) of the masked MST — TPU-tuned Prim.
+    """(total, count, max_edge) of the masked MST — matmul row-select Prim.
 
     Same early-exit masked Prim as :func:`cluster_mst_edge_costs`, with the
     two per-iteration lowering hazards removed for the vmapped-ensemble hot
     path (the carried geo-aggregate update in every cluster operator):
 
     * ``cost[j]`` with a traced per-chain ``j`` lowers to a batched row
-      GATHER — on TPU a serialized scalar-core loop. Here the row is
-      selected as ``one_hot(j) @ cost``: under ``vmap`` a (B, N) x (N, N)
-      MXU matmul. The full cost matrix is re-read per iteration, so this
+      GATHER. Here the row is selected as ``one_hot(j) @ cost``: under
+      ``vmap`` a (B, N) x (N, N) matmul. The full cost matrix is re-read
+      per iteration, so this
       form is only a win while (N, N) is small enough to stay resident —
       the caller gates on N (posterior._mst_triple).
     * the (N-1,) edge array (scatter per iteration) is collapsed into the
@@ -90,13 +92,11 @@ def cluster_mst_stats_prim(cost, mask):
 
     start = jnp.argmax(mask)
     cand0 = mask & (iota != start)
-    # precision=HIGHEST: the TPU's default single-pass bf16 matmul would
-    # TRUNCATE the selected cost values to bf16 (the one-hot operand is
-    # exact either way) — measured as totals-match=False vs the gather
-    # engines in benchmarks/mst10k_probe.py. The multi-pass form
-    # reconstructs the f32 row exactly for a 0/1 selector.
-    row0 = jnp.matmul(jax.nn.one_hot(start, n, dtype=dtype), cost,
-                      precision=jax.lax.Precision.HIGHEST)
+    # precision=HIGHEST: a reduced-precision matmul (bf16 passes, or TF32
+    # on a GPU) would round the selected cost values (the one-hot operand
+    # is exact either way); full f32 returns the row exactly for a 0/1
+    # selector.
+    row0 = jnp.matmul(jax.nn.one_hot(start, n, dtype=dtype), cost, precision=HIGHEST)
     d0 = jnp.where(cand0, row0, BIG)
     m_edges = jnp.maximum(mask.sum().astype(jnp.int32) - 1, 0)
 
@@ -114,8 +114,7 @@ def cluster_mst_stats_prim(cost, mask):
         max_e = jnp.maximum(max_e, jnp.where(valid, w, 0.0))
         count = count + valid.astype(jnp.int32)
         cand = cand & (iota != j) & jnp.full((n,), valid)
-        row_j = jnp.matmul(jax.nn.one_hot(j, n, dtype=dtype), cost,
-                           precision=jax.lax.Precision.HIGHEST)
+        row_j = jnp.matmul(jax.nn.one_hot(j, n, dtype=dtype), cost, precision=HIGHEST)
         d = jnp.where(cand, jnp.minimum(d, row_j), d)
         return cand, d, total, max_e, count, i + 1
 

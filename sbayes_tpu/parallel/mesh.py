@@ -1,11 +1,11 @@
-"""Multi-chip scaling: chain-axis sharding over an ICI device mesh.
+"""Multi-device scaling: chain-axis sharding over a device mesh.
 
 The reference's only distributed machinery is OS processes + pickled pipes
 (sbayes/mcmc_setup.py MCMCChainProcess, cli.py Pool). Here distribution is
 SPMD: chains (ensembles, MC3 ladders, warm-up races) are a batch axis laid
 out over a ``jax.sharding.Mesh``; XLA inserts the (minimal) collectives.
 Each chain's state is tiny and fully chain-parallel, so the layout is pure
-data parallelism over ICI with zero cross-chip traffic in the hot loop —
+data parallelism with zero cross-device traffic in the hot loop —
 the only communication is at MC3 swap boundaries, where per-chain scalars
 (log_lh, log_prior) are gathered and a permutation of the chain axis is
 applied.

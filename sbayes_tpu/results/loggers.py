@@ -289,6 +289,19 @@ class LikelihoodLogger(ResultsLogger):
     """Per-observation likelihoods to HDF5 (same dataset names as the
     reference's PyTables file: 'likelihood' and 'na_values')."""
 
+    @staticmethod
+    def require_h5py():
+        """Fail when the run is set up, not after sampling, if the HDF5
+        file cannot be written."""
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            raise ImportError(
+                "results.log_likelihood is on, which writes likelihood_K*.h5 "
+                "with h5py, and h5py is not installed. Install h5py or set "
+                "results.log_likelihood: false in the config."
+            )
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._lh_ds = None

@@ -7,11 +7,13 @@ cluster decoding.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import TYPE_CHECKING, Dict, List, Sequence
 
 import numpy as np
-import pandas as pd
 from numpy.typing import NDArray
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 from sbayes_tpu.utils import PathLike, parse_cluster_columns
 
@@ -96,6 +98,8 @@ class Results:
 
     @staticmethod
     def read_stats(txt_path: PathLike) -> pd.DataFrame:
+        import pandas as pd
+
         return pd.read_csv(txt_path, delimiter="\t")
 
     @staticmethod

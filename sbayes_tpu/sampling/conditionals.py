@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from sbayes_tpu.model.constants import ModelConstants
 from sbayes_tpu.model.math import (
+    HIGHEST,
     conditional_effect_mean,
     gather_cols,
     gather_const_rows,
@@ -96,13 +97,13 @@ class Conditionals:
         dtype = feats_t.dtype
         cl_eff = normalize(cl_counts_t + conc_cluster_t[None], axis=-1)
         lh0 = jnp.einsum("kn,kfs,nfs->nf", clusters.astype(dtype),
-                         cl_eff.astype(dtype), feats_t,
-                         preferred_element_type=jnp.float32)
+                         cl_eff, feats_t,
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
 
         conf_eff = normalize(conf_counts_t + conc_conf_t, axis=-1)
         lhc = jnp.einsum("cgn,cgfs,nfs->nfc", jnp.asarray(c.groups).astype(dtype),
-                         conf_eff.astype(dtype), feats_t,
-                         preferred_element_type=jnp.float32)
+                         conf_eff, feats_t,
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
 
         lh = jnp.concatenate([lh0[:, :, None], lhc], axis=-1)
         return jnp.where(na_t[:, :, None], 1.0, lh)
@@ -165,7 +166,7 @@ class Conditionals:
         return jnp.stack([
             jnp.einsum("gn,nfs->gfs", groups[i_c],
                        feats * source_comp(source, 1 + i_c, dtype)[:, :, None],
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32, precision=HIGHEST)
             for i_c in range(c.C - 1)
         ], axis=0)
 
@@ -188,7 +189,7 @@ class Conditionals:
         keep = cluster.astype(dtype) * (1.0 - sub)
         src0 = source_comp(fs.source, 0, dtype)
         cl_counts_keep = jnp.einsum("n,nf,nfs->fs", keep, src0, feats,
-                                    preferred_element_type=jnp.float32)
+                                    preferred_element_type=jnp.float32, precision=HIGHEST)
         cluster_effect = conditional_effect_mean(
             prior_counts=fs.conc_cluster,
             feature_counts=cl_counts_keep,
@@ -196,8 +197,8 @@ class Conditionals:
             prior_temperature=self.Tp,
             temperature=self.T,
         )
-        lh0 = jnp.einsum("fs,nfs->nf", cluster_effect.astype(dtype), feats,
-                         preferred_element_type=jnp.float32)
+        lh0 = jnp.einsum("fs,nfs->nf", cluster_effect, feats,
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
 
         # Confounder components: full counts minus subset contribution.
         # Per-component loop (C tiny/static): every pairwise path of the
@@ -207,7 +208,7 @@ class Conditionals:
         changeable = jnp.stack([
             jnp.einsum("gn,nfs->gfs", groups[i_c] * sub[None, :],
                        feats * source_comp(fs.source, 1 + i_c, dtype)[:, :, None],
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32, precision=HIGHEST)
             for i_c in range(c.C - 1)
         ], axis=0)
         unchangeable = fs.conf_counts - changeable
@@ -218,8 +219,8 @@ class Conditionals:
             prior_temperature=self.Tp,
             temperature=self.T,
         )
-        lhc = jnp.einsum("cgn,cgfs,nfs->nfc", groups, conf_effect.astype(dtype), feats,
-                         preferred_element_type=jnp.float32)
+        lhc = jnp.einsum("cgn,cgfs,nfs->nfc", groups, conf_effect, feats,
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
 
         lh = jnp.concatenate([lh0[:, :, None], lhc], axis=-1)
         lh = jnp.where(fs.na[:, :, None], 1.0, lh)
@@ -258,27 +259,27 @@ class Conditionals:
             own0 = feats * source_comp(source_t, 0, dtype)[:, :, None]  # (N,f,S)
             base_cl = cl_counts_t + conc_cl_t[None]                     # (K,f,S)
             per_obj_cl = jnp.einsum("kn,kfs->nfs", clusters.astype(jnp.float32),
-                                    base_cl) - (
+                                    base_cl, precision=HIGHEST) - (
                 member[:, None, None] * own0
             )
             eff0 = per_obj_cl / jnp.maximum(per_obj_cl.sum(-1, keepdims=True), EPS32)
             lh0 = jnp.where(member[:, None],
-                            jnp.einsum("nfs,nfs->nf", eff0.astype(dtype), feats,
-                                       preferred_element_type=jnp.float32), 0.0)
+                            jnp.einsum("nfs,nfs->nf", eff0, feats,
+                                       preferred_element_type=jnp.float32, precision=HIGHEST), 0.0)
 
             # Confounder components
             base_conf = conf_counts_t + conc_conf_t  # (Cm1,Gmax,f,S)
             lhs = [lh0[:, :, None]]
             for i_c in range(groups.shape[0]):
                 own = feats * source_comp(source_t, 1 + i_c, dtype)[:, :, None]
-                per_obj = jnp.einsum("gn,gfs->nfs", groups[i_c], base_conf[i_c]) - (
+                per_obj = jnp.einsum("gn,gfs->nfs", groups[i_c], base_conf[i_c], precision=HIGHEST) - (
                     (groups[i_c].sum(0) > 0)[:, None, None] * own
                 )
                 in_group = groups[i_c].sum(0) > 0
                 eff = per_obj / jnp.maximum(per_obj.sum(-1, keepdims=True), EPS32)
                 lh_c = jnp.where(in_group[:, None],
-                                 jnp.einsum("nfs,nfs->nf", eff.astype(dtype), feats,
-                                            preferred_element_type=jnp.float32), 0.0)
+                                 jnp.einsum("nfs,nfs->nf", eff, feats,
+                                            preferred_element_type=jnp.float32, precision=HIGHEST), 0.0)
                 lhs.append(lh_c[:, :, None])
 
             lh = jnp.concatenate(lhs, axis=-1)
@@ -326,7 +327,7 @@ class Conditionals:
             temperature=self.T,
         )
         return jnp.einsum(
-            "cgn,cgfs,nfc->nfs", jnp.asarray(c.groups), p_conf, w_heated[:, :, 1:]
+            "cgn,cgfs,nfc->nfs", jnp.asarray(c.groups), p_conf, w_heated[:, :, 1:], precision=HIGHEST
         )
 
     # ------------------------------------------------------------------
@@ -435,7 +436,7 @@ class Conditionals:
         member = gather_cols(state_old.clusters[i_cluster], obj_idx).astype(dtype) * sub  # (m,)
         src0 = src_rows_old[:, :, 0].astype(dtype)                           # (m, F)
         excl0 = jnp.einsum("m,mf,mfs->fs", member, src0, feats_m,
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32, precision=HIGHEST)
         cluster_effect = conditional_effect_mean(
             prior_counts=jnp.asarray(c.conc_cluster),
             feature_counts=cl_counts[i_cluster] - excl0,
@@ -444,7 +445,7 @@ class Conditionals:
             temperature=self.T,
         )
         lh0 = jnp.einsum("fs,mfs->mf", cluster_effect.astype(dtype), feats_m,
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
 
         # Confounder components: full counts minus the subset contribution.
         g_m = gather_cols(jnp.asarray(c.groups), obj_idx).astype(dtype)             # (C-1, G, m)
@@ -460,7 +461,7 @@ class Conditionals:
             for ci in range(c.C - 1):
                 v = (srcc[:, :, ci] * sub[:, None])[:, :, None] * feats_m
                 excl_l.append(jnp.dot(g_m[ci], v.reshape(m_, F * S),
-                                      preferred_element_type=jnp.float32
+                                      preferred_element_type=jnp.float32, precision=HIGHEST
                                       ).reshape(-1, F, S))
             excl = jnp.stack(excl_l, axis=0)
             conf_effect = conditional_effect_mean(
@@ -473,12 +474,12 @@ class Conditionals:
             for ci in range(c.C - 1):
                 Ec = jnp.dot(g_m[ci].T.astype(dtype),
                              conf_effect[ci].reshape(-1, F * S).astype(dtype),
-                             preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32, precision=HIGHEST)
                 lhc_l.append((Ec.reshape(m_, F, S) * feats_m).sum(-1))
             lhc = jnp.stack(lhc_l, axis=-1)
         else:
             excl = jnp.einsum("cgm,m,mfc,mfs->cgfs", g_m, sub, srcc, feats_m,
-                              preferred_element_type=jnp.float32)
+                              preferred_element_type=jnp.float32, precision=HIGHEST)
             conf_effect = conditional_effect_mean(
                 prior_counts=jnp.asarray(c.conc_conf),
                 feature_counts=conf_counts - excl,
@@ -487,7 +488,7 @@ class Conditionals:
                 temperature=self.T,
             )
             lhc = jnp.einsum("cgm,cgfs,mfs->mfc", g_m, conf_effect.astype(dtype),
-                             feats_m, preferred_element_type=jnp.float32)
+                             feats_m, preferred_element_type=jnp.float32, precision=HIGHEST)
 
         lh = jnp.concatenate([lh0[:, :, None], lhc], axis=-1)
         lh = jnp.where(na_m[:, :, None], 1.0, lh)
@@ -651,25 +652,25 @@ class Conditionals:
         import os
         if os.environ.get("SBAYES_TPU_POST_MM", "1") == "1":
             # Two-step matmul form (see delta_counts_rows): gather each
-            # row's effect table with one (m x rows)@(rows x F*S) MXU dot,
-            # then a VPU reduce against feats — avoids the convolution
+            # row's effect table with one (m x rows)@(rows x F*S) dot,
+            # then an elementwise reduce against feats — avoids the convolution
             # lowering of the 3-operand einsums. Float effects: same math,
             # different summation association (not bitwise vs einsum).
             m_, F, S = feats_m.shape
             E0 = jnp.dot(mem.T, cl_eff.reshape(-1, F * S).astype(dtype),
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32, precision=HIGHEST)
             lh0 = (E0.reshape(m_, F, S) * feats_m).sum(-1)
             lhc_l = []
             for ci in range(c.C - 1):
                 Ec = jnp.dot(g_m[ci].T, conf_eff[ci].reshape(-1, F * S).astype(dtype),
-                             preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32, precision=HIGHEST)
                 lhc_l.append((Ec.reshape(m_, F, S) * feats_m).sum(-1))
             lhc = jnp.stack(lhc_l, axis=-1)
         else:
             lh0 = jnp.einsum("km,kfs,mfs->mf", mem, cl_eff.astype(dtype), feats_m,
-                             preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32, precision=HIGHEST)
             lhc = jnp.einsum("cgm,cgfs,mfs->mfc", g_m, conf_eff.astype(dtype),
-                             feats_m, preferred_element_type=jnp.float32)
+                             feats_m, preferred_element_type=jnp.float32, precision=HIGHEST)
         lh = jnp.concatenate([lh0[:, :, None], lhc], axis=-1)
         lh = jnp.where(na_m[:, :, None], 1.0, lh)
 
@@ -698,24 +699,24 @@ class Conditionals:
         import os
         if os.environ.get("SBAYES_TPU_DC_MM", "1") == "1" and feats_m.shape[0] <= 64:
             # Two-step matmul form: elementwise (m,F,S) product, then one
-            # (rows x m)@(m, F*S) MXU dot per component — avoids XLA's
+            # (rows x m)@(m, F*S) dot per component — avoids XLA's
             # convolution lowering of the 3/4-operand einsums.
             m_, F, S = feats_m.shape
             u = (d0[:, :, None] * feats_m).reshape(m_, F * S)
-            delta_cl = jnp.dot(mem, u, preferred_element_type=jnp.float32
+            delta_cl = jnp.dot(mem, u, preferred_element_type=jnp.float32, precision=HIGHEST
                                ).reshape(-1, F, S)
             dconf = []
             for ci in range(c.C - 1):
                 v = (dc[:, :, ci][:, :, None] * feats_m).reshape(m_, F * S)
                 dconf.append(jnp.dot(g_m[ci] * sub[None, :], v,
-                                     preferred_element_type=jnp.float32
+                                     preferred_element_type=jnp.float32, precision=HIGHEST
                                      ).reshape(-1, F, S))
             delta_conf = jnp.stack(dconf, axis=0)
         else:
             delta_cl = jnp.einsum("km,mf,mfs->kfs", mem, d0, feats_m,
-                                  preferred_element_type=jnp.float32)
+                                  preferred_element_type=jnp.float32, precision=HIGHEST)
             delta_conf = jnp.einsum("cgm,m,mfc,mfs->cgfs", g_m, sub, dc, feats_m,
-                                    preferred_element_type=jnp.float32)
+                                    preferred_element_type=jnp.float32, precision=HIGHEST)
         return cl_counts + delta_cl, conf_counts + delta_conf
 
     def delta_counts_rows_move(self, counts, clusters_old, clusters_new,
@@ -746,25 +747,25 @@ class Conditionals:
             u_new = (new0[:, :, None] * feats_m).reshape(m_, F * S)
             u_old = (old0[:, :, None] * feats_m).reshape(m_, F * S)
             delta_cl = (
-                jnp.dot(mem_new, u_new, preferred_element_type=jnp.float32)
-                - jnp.dot(mem_old, u_old, preferred_element_type=jnp.float32)
+                jnp.dot(mem_new, u_new, preferred_element_type=jnp.float32, precision=HIGHEST)
+                - jnp.dot(mem_old, u_old, preferred_element_type=jnp.float32, precision=HIGHEST)
             ).reshape(-1, F, S)
             dconf = []
             for ci in range(c.C - 1):
                 v = (dc[:, :, ci][:, :, None] * feats_m).reshape(m_, F * S)
                 dconf.append(jnp.dot(g_m[ci] * sub[None, :], v,
-                                     preferred_element_type=jnp.float32
+                                     preferred_element_type=jnp.float32, precision=HIGHEST
                                      ).reshape(-1, F, S))
             delta_conf = jnp.stack(dconf, axis=0)
         else:
             delta_cl = (
                 jnp.einsum("km,mf,mfs->kfs", mem_new, new0, feats_m,
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32, precision=HIGHEST)
                 - jnp.einsum("km,mf,mfs->kfs", mem_old, old0, feats_m,
-                             preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32, precision=HIGHEST)
             )
             delta_conf = jnp.einsum("cgm,m,mfc,mfs->cgfs", g_m, sub, dc, feats_m,
-                                    preferred_element_type=jnp.float32)
+                                    preferred_element_type=jnp.float32, precision=HIGHEST)
         return cl_counts + delta_cl, conf_counts + delta_conf
 
     def source_posterior(self, clusters, weights, source, counts=None):

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.scipy.special import ndtr, ndtri
 
-from sbayes_tpu.model.math import normalize, sample_categorical_onehot, normalize_weights
+from sbayes_tpu.model.math import HIGHEST, normalize, normalize_weights, sample_categorical_onehot
 from sbayes_tpu.sampling.conditionals import Conditionals
 from sbayes_tpu.sampling.operators import OperatorFactory
 from sbayes_tpu.sampling.state import ChainState
@@ -99,12 +99,12 @@ class Initializer:
             one F-slice (NA observations count as 'any state')."""
             feats_filled = jnp.where(valid_t[:, :, None], feats_t, 1.0)
             state_counts = jnp.einsum("gn,nfs->gfs", z.astype(feats_t.dtype), feats_t,
-                                      preferred_element_type=jnp.float32)
+                                      preferred_element_type=jnp.float32, precision=HIGHEST)
             p = normalize(state_counts + prior_counts_t, axis=-1)
             pointwise_ll = jnp.log(
                 jnp.maximum(jnp.einsum("gfs,nfs->gnf", p.astype(feats_filled.dtype),
                                        feats_filled,
-                                       preferred_element_type=jnp.float32), 1e-35)
+                                       preferred_element_type=jnp.float32, precision=HIGHEST), 1e-35)
             )
             return pointwise_ll.sum(-1)
 
@@ -130,7 +130,7 @@ class Initializer:
 
             if geo_on:
                 z_peaky = jax.nn.softmax(N * z, axis=1)
-                avg_dist = z_peaky @ cost
+                avg_dist = jnp.matmul(z_peaky, cost, precision=HIGHEST)
                 log_geo = -avg_dist / c.geo.scale / 2.0
                 mean_cluster_geo = jax.scipy.special.logsumexp(log_geo[:K]) - jnp.log(
                     float(log_geo[:K].size)
@@ -182,7 +182,7 @@ class Initializer:
 
             def body(j, carry):
                 cluster, occupied = carry
-                neigh = ((adj @ cluster.astype(jnp.float32)) > 0) & ~occupied
+                neigh = (jnp.matmul(adj, cluster.astype(jnp.float32), precision=HIGHEST) > 0) & ~occupied
                 can_grow = jnp.any(neigh)
                 lg = jnp.where(neigh, 0.0, -jnp.inf)
                 pick = jax.random.categorical(jax.random.fold_in(k_grow, j),

@@ -108,14 +108,12 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
                     and not getattr(spec, "forced_accept", False)):
                 # Exact generic count-diff. Two forms, both exact (unchanged
                 # cells cancel bitwise): the per-feature two-pass diff and
-                # the lane-packed single-stack diff (posterior.py). The
-                # packed form wins standalone (~4x: no S-minor padding) but
-                # LOSES ~4x inside the fused multi-branch ensemble program
-                # at the headline shape — the round-4 headline regression
-                # (BENCH_r04 geo_off 93k vs 392k steps/s with this
-                # per-feature form; benchmarks/tpu_session_results.txt
-                # round 5). Default: per-feature; SBAYES_TPU_PACKED_DLL=1
-                # opts into the packed form for re-measurement.
+                # the lane-packed single-stack diff (posterior.py). On an
+                # earlier accelerator the packed form won standalone and
+                # lost inside the fused multi-branch ensemble program at
+                # the headline shape. Default: per-feature;
+                # SBAYES_TPU_PACKED_DLL=1 opts into the packed form for
+                # re-measurement on the GPU (ROADMAP Design 2).
                 import os
 
                 if os.environ.get("SBAYES_TPU_PACKED_DLL") == "1":
@@ -228,9 +226,9 @@ def make_mh_apply_fn(cond: Conditionals, op_specs: Sequence[OperatorSpec]) -> Ca
                 # mode= pins the out-of-bounds semantics the scheme relies
                 # on (gathered values at idx==N are dead; writes dropped)
                 # rather than leaning on JAX's defaults.
-                # gather/scatter ride the MXU one-hot form at small sizes
-                # (vmapped TPU gathers serialize; math.gather_rows) and
-                # the native in-place forms at scale.
+                # gather/scatter ride the one-hot matmul form at small
+                # sizes (math.gather_rows) and the native in-place forms
+                # at scale.
                 from sbayes_tpu.model.math import gather_rows, scatter_rows
 
                 idx, rows_new = res.source_rows

@@ -25,6 +25,7 @@ from jax import lax
 from jax.scipy.special import betaln
 
 from sbayes_tpu.model.math import (
+    HIGHEST,
     compact_indices,
     conditional_effect_mean,
     dirichlet_categorical_delta,
@@ -38,7 +39,7 @@ from sbayes_tpu.model.math import (
     source_is_packed,
     source_n_changed,
 )
-from sbayes_tpu.sampling.conditionals import EPS32, Conditionals, SourceResample
+from sbayes_tpu.sampling.conditionals import EPS32, Conditionals
 from sbayes_tpu.sampling.state import ChainState
 
 Q_GIBBS = -jnp.inf
@@ -108,6 +109,12 @@ def resolve_result_state(res: OpResult):
     return res.state._replace(source=scatter_rows(res.state.source, idx, rows))
 
 
+# Named scope of the membership marginals (the gibbsish proposals' and the
+# jump's O(N·F) pass): traces attribute device time to it
+# (sbayes_tpu/profiling.py).
+MARGINAL_SCOPE = "membership_marginal"
+
+
 def _masked_categorical(key, p, mask):
     """Draw an index ~ p restricted to ``mask`` (p need not be normalized)."""
     logits = jnp.where(mask, jnp.log(jnp.maximum(p, TINY)), -jnp.inf)
@@ -130,7 +137,6 @@ class OperatorFactory:
         self.Tp = cond.Tp
         self.sample_from_prior = cond.sample_from_prior
         self.p_grow = p_grow
-        self._pm_cache = False  # lazily built pallas marginal (False = unset)
         # Static cap on the wide operator's gathered changed set. Small
         # models resample via rows at full width (no truncation); large
         # ones bound the per-step source-resample work at O(cap * F)
@@ -144,34 +150,6 @@ class OperatorFactory:
             self.wide_rows_cap = min(N, int(cap_env))
         else:
             self.wide_rows_cap = N if N <= 1024 else max(512, N // 16)
-
-    @property
-    def _pallas_marginal(self):
-        """The (ratio=False, heat=False) fused-marginal variant — both
-        absolute marginals, as the jump's EPS-flooring semantics need."""
-        return self._pm(ratio=False, heat=False)
-
-    def _pm(self, ratio: bool, heat: bool, two_eff: bool = False):
-        """Fused Pallas marginal, statically specialized per caller (see
-        ops/pallas_marginal.py): gibbsish -> (ratio=True, heat=False),
-        wide raw-probs -> (ratio=True, heat=True), log-space jump ->
-        (True, False, two_eff=True), EPS-flooring jump -> (False, False).
-        ``_pm_cache``: False = unset, None = force-XLA (tests), else a
-        dict of built variants (each possibly None when unavailable)."""
-        if self._pm_cache is None:
-            return None
-        if self._pm_cache is False:
-            self._pm_cache = {}
-        key = (ratio, heat, two_eff)
-        if key not in self._pm_cache:
-            from sbayes_tpu.ops.pallas_marginal import make_pallas_marginal
-
-            import os
-            interp = os.environ.get("SBAYES_TPU_PALLAS_INTERPRET") == "1"
-            self._pm_cache[key] = make_pallas_marginal(
-                self.consts, interpret=interp, ratio=ratio, heat=heat,
-                two_eff=two_eff)
-        return self._pm_cache[key]
 
     # ==================================================================
     # Shared cluster-posterior math
@@ -200,7 +178,7 @@ class OperatorFactory:
         feats = jnp.asarray(c.features)
         free = (~jnp.any(state.clusters, axis=0)).astype(feats.dtype)
         counts = jnp.einsum("n,nfs->fs", free, feats,
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32, precision=HIGHEST)
         return normalize(self._posterior_counts(jnp.asarray(c.conc_cluster), counts), axis=-1)
 
     def cluster_effect_proposal_residual_counts(self, state, cl_counts, conf_counts, i_cluster):
@@ -235,18 +213,19 @@ class OperatorFactory:
         without/with cluster membership, meaningful at ``avail`` — the
         test-oracle form. Production proposal code wants
         ``_cluster_log_odds`` instead (single log per element)."""
-        return self._marginal_impl(state, i_cluster, avail, effect_proposal,
-                                   counts, heat_effect_lh, ratio=False)
+        with jax.named_scope(MARGINAL_SCOPE):
+            return self._marginal_impl(state, i_cluster, avail, effect_proposal,
+                                       counts, heat_effect_lh, ratio=False)
 
     def _cluster_log_odds(self, state, i_cluster, avail, effect_proposal="gibbs",
                           counts=None, heat_effect_lh=False):
         """(N,) signed log-odds ``log_m1 - log_m0`` of cluster membership —
         what every proposal feeds into a sigmoid. Computed directly with
-        ONE log per (object, feature) element (Pallas ratio kernel / XLA
-        ratio form); returning only the difference makes accidental use
+        ONE log per (object, feature) element (the ratio form); returning only the difference makes accidental use
         as an absolute marginal a shape error, not silent garbage."""
-        return self._marginal_impl(state, i_cluster, avail, effect_proposal,
-                                   counts, heat_effect_lh, ratio=True)
+        with jax.named_scope(MARGINAL_SCOPE):
+            return self._marginal_impl(state, i_cluster, avail, effect_proposal,
+                                       counts, heat_effect_lh, ratio=True)
 
     def _marginal_impl(self, state, i_cluster, avail, effect_proposal,
                        counts, heat_effect_lh, ratio):
@@ -279,40 +258,6 @@ class OperatorFactory:
         fc = c.feature_chunk
         chunked = fc is not None and fc < c.F and effect_proposal == "gibbs"
 
-        # Pallas fused path (ops/pallas_marginal.py): one VMEM pass over
-        # the pre-tiled feature layout — enabled when consts carry it.
-        # The heat transcendentals compile in only for the wide raw-probs
-        # path (heat_effect_lh).
-        # When the temperature is a STATIC 1.0 (plain ensembles: the
-        # runner dispatches a unit-temp specialization, runner.py), the
-        # heat variant is the identity — compile the transcendentals out
-        # and use the cheap noheat kernel even on the wide raw-probs path.
-        unit_T = isinstance(self.T, (int, float)) and self.T == 1.0
-        use_heat = heat_effect_lh and not unit_T
-        pm = self._pm(ratio=ratio, heat=use_heat) if chunked else None
-        if pm is not None:
-            from sbayes_tpu.ops.pallas_marginal import tile_layout_eff, wh_layout
-
-            unif = jnp.asarray(c.unif_conc)
-            p_eff = normalize(
-                unif + (jnp.asarray(c.conc_cluster) - unif) / self.Tp
-                + cl_counts[i_cluster] / self.T, axis=-1)               # (F, S)
-            conf_eff = normalize(conf_counts + jnp.asarray(c.conc_conf), axis=-1)
-            p_eff_tl = tile_layout_eff(p_eff, c.F).reshape(1, -1)
-            if not ratio:
-                p_eff_tl = jnp.concatenate([p_eff_tl, p_eff_tl], axis=0)
-            conf_eff_tl = tile_layout_eff(conf_eff, c.F)                # (C-1,G,TSFcp)
-            wh_tl = wh_layout((state.weights ** (1.0 / self.Tp)).T, c.F)
-            invT = ((1.0 / self.T) * jnp.ones((), jnp.float32)
-                    if use_heat else None)
-            out = pm(
-                p_eff_tl, wh_tl, hc.astype(jnp.float32), hc_flip.astype(jnp.float32),
-                in_cluster_now.astype(jnp.float32)[:, None], conf_eff_tl, invT,
-            )
-            if ratio:
-                return out / self.T
-            return out[0] / self.T, out[1] / self.T
-
         if not chunked:
             feats = jnp.asarray(c.features)
             na = jnp.asarray(c.na)
@@ -324,8 +269,9 @@ class OperatorFactory:
             cl_counts_t, conf_counts_t = cl_counts, conf_counts
 
         # Per-object confounder effects come from a dense one-hot matmul
-        # over the (tiny) group axis — row-gathers by group index are slow
-        # on TPU. Hoisted: F-independent.
+        # over the (tiny) group axis instead of a row-gather by group index
+        # (ROADMAP Speed 3 re-decides this form on the GPU). Hoisted:
+        # F-independent.
         groups_arr = jnp.asarray(c.groups)
         hc_f = hc.astype(jnp.float32)            # (N, C)
         hc_flip_f = hc_flip.astype(jnp.float32)
@@ -339,9 +285,8 @@ class OperatorFactory:
             Only (N, f) temporaries — no (N, f, C) weight tensors, no wasted
             component-0 likelihood (it is replaced by the proposal effect).
             """
-            dtype = feats_t.dtype
-            cluster_lh = jnp.einsum("fs,nfs->nf", p_eff.astype(dtype), feats_t,
-                                    preferred_element_type=jnp.float32)
+            cluster_lh = jnp.einsum("fs,nfs->nf", p_eff, feats_t,
+                                    preferred_element_type=jnp.float32, precision=HIGHEST)
             if heat_effect_lh:
                 # The wide operator's raw-probs variant heats the component-0
                 # likelihood once more before the weight mixture (reference
@@ -353,14 +298,14 @@ class OperatorFactory:
             conf_eff = normalize(conf_counts_t + conc_conf_t, axis=-1)  # (C-1,G,f,S)
             for i_c in range(c.C - 1):
                 eff_rows = jnp.einsum("gn,gfs->nfs", groups_arr[i_c],
-                                      conf_eff[i_c]).astype(dtype)      # (N, f, S)
+                                      conf_eff[i_c], precision=HIGHEST)  # (N, f, S)
                 lh_c = jnp.einsum("nfs,nfs->nf", eff_rows, feats_t,
-                                  preferred_element_type=jnp.float32)
+                                  preferred_element_type=jnp.float32, precision=HIGHEST)
                 lh_comps.append(jnp.where(na_t, 1.0, lh_c))
 
             wh = weights_t ** (1.0 / self.Tp)                           # (f, C)
-            z_cur = jnp.einsum("nc,fc->nf", hc_f, wh)
-            z_flip = jnp.einsum("nc,fc->nf", hc_flip_f, wh)
+            z_cur = jnp.einsum("nc,fc->nf", hc_f, wh, precision=HIGHEST)
+            z_flip = jnp.einsum("nc,fc->nf", hc_flip_f, wh, precision=HIGHEST)
             s_cur = sum(wh[None, :, ci] * hc_f[:, ci, None] * lh_comps[ci]
                         for ci in range(c.C))
             s_flip = sum(wh[None, :, ci] * hc_flip_f[:, ci, None] * lh_comps[ci]
@@ -512,8 +457,8 @@ class OperatorFactory:
         ll_d = dirichlet_categorical_delta(cl_counts, conc_cl[None], d_cl).sum()
         # gather the single touched group row per confounder (g_o is
         # one-hot or all-zero; all-zero -> row/a/d are zero -> delta 0)
-        row_old = jnp.einsum("cg,cgfs->cfs", g_o, conf_counts)
-        a_row = jnp.einsum("cg,cgfs->cfs", g_o, jnp.asarray(c.conc_conf))
+        row_old = jnp.einsum("cg,cgfs->cfs", g_o, conf_counts, precision=HIGHEST)
+        a_row = jnp.einsum("cg,cgfs->cfs", g_o, jnp.asarray(c.conc_conf), precision=HIGHEST)
         has_g = g_o.sum(-1)[:, None, None]                           # (C-1,1,1)
         ll_d = ll_d + dirichlet_categorical_delta(
             row_old, a_row, d_conf_row * has_g).sum()
@@ -564,9 +509,9 @@ class OperatorFactory:
             return ~occ
         adj = jnp.asarray(self.consts.adjacency).astype(jnp.float32)
         cluster = clusters[i_cluster].astype(jnp.float32)
-        reach = adj @ cluster
+        reach = jnp.matmul(adj, cluster, precision=HIGHEST)
         if neighbourhood == "twostep":
-            reach = adj @ reach
+            reach = jnp.matmul(adj, reach, precision=HIGHEST)
         return (reach > 0) & ~occ
 
     # ==================================================================
@@ -787,7 +732,7 @@ class OperatorFactory:
 
             def em_step(i_step, z):
                 state_counts = jnp.einsum("gn,nfs->gfs", z, feats,
-                                          preferred_element_type=jnp.float32)
+                                          preferred_element_type=jnp.float32, precision=HIGHEST)
                 p = normalize(state_counts + prior_counts[None], axis=-1)
                 p = lax.cond(i_step == 0,
                              lambda p: p.at[i_cluster].set(p_clust),
@@ -796,10 +741,10 @@ class OperatorFactory:
                 # stability; the reference's prod over features underflows
                 # benignly in float64, we don't have that luxury)
                 log_pw = jnp.einsum("gfs,nfs->gn", jnp.log(jnp.maximum(p, TINY)),
-                                    feats_filled, preferred_element_type=jnp.float32)
+                                    feats_filled, preferred_element_type=jnp.float32, precision=HIGHEST)
                 if consider_geo:
                     z_peaky = jax.nn.softmax(N * z, axis=1)
-                    avg_dist = z_peaky @ cost                       # (Gt, N)
+                    avg_dist = jnp.matmul(z_peaky, cost, precision=HIGHEST)  # (Gt, N)
                     geo_log = -avg_dist / c.geo.scale / 2.0
                     geo_log = geo_log.at[K:].set(
                         jnp.log(jnp.maximum(jnp.exp(geo_log[:K]).mean(0), TINY)))
@@ -844,20 +789,12 @@ class OperatorFactory:
                                 eps: float = None, geo_scaler: float = 2.0,
                                 effect_proposal: str = "gibbs",
                                 em_proposal: bool = False,
-                                n_em_steps: int = 10,
-                                _probe_skip: tuple = ()) -> Callable:
+                                n_em_steps: int = 10) -> Callable:
         """The whole-membership resampling operator. ``em_proposal=True``
         selects the AlterClusterEM proposal probabilities (reference
         operators.py:1571-1665) instead of the collapsed-posterior wide
         probabilities (reference operators.py:1382-1568); the MH/q-ratio
-        machinery is shared, as in the reference's class hierarchy.
-
-        ``_probe_skip`` (benchmarks/wide_probe.py ONLY — every entry
-        breaks MH exactness): cost-attribution ablations — 'back' skips the
-        backward proposal probs, 'src' skips the gathered-rows source
-        resample + count deltas, 'redraw' replaces the redraw-until-changed
-        while_loop with one draw, 'probs' replaces both proposal-probs
-        computations with constant 0.5."""
+        machinery is shared, as in the reference's class hierarchy."""
         cond = self.cond
         consts = self.consts
         K, N = consts.K, consts.N
@@ -880,10 +817,7 @@ class OperatorFactory:
 
             counts = self._state_counts(state)
             state = self._put_counts(state, counts)
-            if "probs" in _probe_skip:
-                p = jnp.where(avail, 0.5, 0.0)
-            else:
-                p = cluster_probs(state, i_cluster, avail, counts)
+            p = cluster_probs(state, i_cluster, avail, counts)
 
             # Redraw until the proposal differs from the current cluster
             def draw(k):
@@ -899,11 +833,8 @@ class OperatorFactory:
                 return k2, draw(k1), n_draws + 1
 
             k1, k2 = jax.random.split(k_draw)
-            if "redraw" in _probe_skip:
-                cluster_draw = draw(k1)
-            else:
-                _, cluster_draw, _ = lax.while_loop(
-                    cond_fn, body_fn, (k2, draw(k1), jnp.int32(1)))
+            _, cluster_draw, _ = lax.while_loop(
+                cond_fn, body_fn, (k2, draw(k1), jnp.int32(1)))
 
             cluster_new = jnp.where(avail, cluster_draw, cluster_old)
             new_size = cluster_new.sum()
@@ -933,24 +864,17 @@ class OperatorFactory:
             obj_idx = compact_indices(changed, M, N)
             valid = jnp.arange(M) < m
             src_rows_old = gather_rows(state.source, obj_idx, consts.C)
-            if "src" in _probe_skip:
-                zero = jnp.zeros((), jnp.float32)
-                rs = SourceResample(state.source, zero, zero,
-                                    source_prior_delta=zero,
-                                    new_rows=src_rows_old)
-                counts_new, pat_new = counts, state.pat_counts
-            else:
-                rs = cond.gibbs_resample_source_rows(
-                    k_src, state, clusters_new, obj_idx, valid, i_cluster, counts)
-                feats_m = gather_const_rows(jnp.asarray(consts.features), obj_idx)
-                counts_new = cond.delta_counts_rows_move(
-                    counts, state.clusters, clusters_new, obj_idx, valid,
-                    src_rows_old, rs.new_rows, feats_m)
-                pat_new = self._delta_pat(
-                    state.pat_counts, obj_idx, valid,
-                    jnp.any(gather_cols(state.clusters, obj_idx) > 0.5, axis=0),
-                    jnp.any(gather_cols(clusters_new, obj_idx) > 0.5, axis=0),
-                    src_rows_old, rs.new_rows)
+            rs = cond.gibbs_resample_source_rows(
+                k_src, state, clusters_new, obj_idx, valid, i_cluster, counts)
+            feats_m = gather_const_rows(jnp.asarray(consts.features), obj_idx)
+            counts_new = cond.delta_counts_rows_move(
+                counts, state.clusters, clusters_new, obj_idx, valid,
+                src_rows_old, rs.new_rows, feats_m)
+            pat_new = self._delta_pat(
+                state.pat_counts, obj_idx, valid,
+                jnp.any(gather_cols(state.clusters, obj_idx) > 0.5, axis=0),
+                jnp.any(gather_cols(clusters_new, obj_idx) > 0.5, axis=0),
+                src_rows_old, rs.new_rows)
             # source stays the OLD buffer: row write deferred to the MH
             # kernel (OpResult.source_rows). The backward cluster_probs
             # below reads only counts/weights/clusters — never source.
@@ -961,10 +885,7 @@ class OperatorFactory:
                     pat_counts=pat_new,
                 ), counts_new)
 
-            if "back" in _probe_skip or "probs" in _probe_skip:
-                p_back = p
-            else:
-                p_back = cluster_probs(state_new, i_cluster, avail, counts_new)
+            p_back = cluster_probs(state_new, i_cluster, avail, counts_new)
             qb_site = jnp.where(cluster_old, p_back, 1.0 - p_back)
             log_q_back = jnp.where(avail, jnp.log(jnp.maximum(qb_site, TINY)), 0.0).sum()
             ssb_site = jnp.where(cluster_new, p_back, 1.0 - p_back)
@@ -1074,7 +995,6 @@ class OperatorFactory:
                 """Partial (N,) log-lh sums for stay/jump on one F-slice,
                 via the closed-form weight mixture (see
                 _log_marginal_with_without) — only (N, f) temporaries."""
-                dtype = feats_t.dtype
 
                 def effect(i):
                     return conditional_effect_mean(
@@ -1093,18 +1013,18 @@ class OperatorFactory:
                     temperature=self.T,
                 )
                 wh = weights_t ** (1.0 / self.Tp)                      # (f, C)
-                z = jnp.einsum("nc,fc->nf", hc_f, wh)
+                z = jnp.einsum("nc,fc->nf", hc_f, wh, precision=HIGHEST)
                 s_conf = jnp.zeros_like(z)
                 for i_c in range(c.C - 1):
                     eff_rows = jnp.einsum("gn,gfs->nfs", groups[i_c],
-                                          p_conf_eff[i_c]).astype(dtype)  # (N, f, S)
+                                          p_conf_eff[i_c], precision=HIGHEST)  # (N, f, S)
                     lh_c = jnp.einsum("nfs,nfs->nf", eff_rows, feats_t,
-                                      preferred_element_type=jnp.float32)
+                                      preferred_element_type=jnp.float32, precision=HIGHEST)
                     s_conf = s_conf + wh[None, :, 1 + i_c] * hc_f[:, 1 + i_c, None] * lh_c
 
                 def log_marginal(p_clust):
-                    lh0 = jnp.einsum("fs,nfs->nf", p_clust.astype(dtype), feats_t,
-                                     preferred_element_type=jnp.float32)
+                    lh0 = jnp.einsum("fs,nfs->nf", p_clust, feats_t,
+                                     preferred_element_type=jnp.float32, precision=HIGHEST)
                     mix = (s_conf + wh[None, :, 0] * hc_f[:, 0, None] * lh0) \
                         / jnp.maximum(z, TINY)
                     return jnp.where(~na_t, jnp.log(jnp.maximum(mix, TINY)), 0.0).sum(-1)
@@ -1113,54 +1033,7 @@ class OperatorFactory:
 
             fc = c.feature_chunk
             chunked = fc is not None and fc < c.F
-            pm = (self._pm(ratio=True, heat=False, two_eff=True) if logspace
-                  else self._pallas_marginal) if chunked else None
-            if pm is not None:
-                # One fused VMEM pass computes BOTH jump marginals: the
-                # expensive per-object confounder expansion is shared, the
-                # two cluster effects ride the kernel's (2, .) effect rows
-                # with hc_flip == hc (ops/pallas_marginal.py). In log-space
-                # mode the ratio variant emits log_stay - log_jump directly
-                # (single log per element).
-                from sbayes_tpu.ops.pallas_marginal import tile_layout_eff, wh_layout
-
-                def eff_of(i):
-                    return conditional_effect_mean(
-                        prior_counts=jnp.asarray(c.conc_cluster),
-                        feature_counts=cl_counts[i],
-                        unif_counts=jnp.asarray(c.unif_conc),
-                        prior_temperature=self.Tp,
-                        temperature=self.T,
-                    )
-
-                p_eff_tl = jnp.stack([
-                    tile_layout_eff(eff_of(i_src), c.F),
-                    tile_layout_eff(eff_of(i_tgt), c.F),
-                ])
-                conf_eff = conditional_effect_mean(
-                    prior_counts=jnp.asarray(c.conc_conf),
-                    feature_counts=conf_counts,
-                    unif_counts=jnp.asarray(c.unif_conc)[None, None],
-                    prior_temperature=self.Tp,
-                    temperature=self.T,
-                )
-                conf_eff_tl = tile_layout_eff(conf_eff, c.F)
-                wh_tl = wh_layout((state.weights ** (1.0 / self.Tp)).T, c.F)
-                hc_f32 = hc.astype(jnp.float32)
-                if logspace:
-                    # incl == 1: diff = log m(row0 = src/stay) - log
-                    # m(row1 = tgt/jump); the proposal wants the jump odds.
-                    diff = pm(p_eff_tl, wh_tl, hc_f32, hc_f32,
-                              jnp.ones((c.N, 1), jnp.float32), conf_eff_tl)
-                    return jax.nn.sigmoid(-diff / self.T)
-                log_jump_m, log_stay_m = pm(
-                    p_eff_tl, wh_tl, hc_f32, hc_f32,
-                    jnp.ones((c.N, 1), jnp.float32), conf_eff_tl,
-                )
-                # incl == 1 -> m1 pairs with effect row 0 (src/stay),
-                # m0 with row 1 (tgt/jump)
-                log_stay, log_jump = log_stay_m, log_jump_m
-            elif not chunked:
+            if not chunked:
                 log_stay, log_jump = slice_logs(
                     jnp.asarray(c.features), na, state.weights, cl_counts, conf_counts,
                     jnp.asarray(c.conc_cluster), jnp.asarray(c.unif_conc),
@@ -1208,7 +1081,8 @@ class OperatorFactory:
             cl_counts, conf_counts = self._state_counts(state)
             state = self._put_counts(state, (cl_counts, conf_counts))
             if gibbsish and not self.sample_from_prior:
-                pj = jump_lh(state, cl_counts, conf_counts, i_src, i_tgt)
+                with jax.named_scope(MARGINAL_SCOPE):
+                    pj = jump_lh(state, cl_counts, conf_counts, i_src, i_tgt)
             else:
                 pj = jnp.ones(N, jnp.float32)
             pj_vec = jnp.where(source_cluster, pj, 0.0)
@@ -1264,13 +1138,7 @@ class OperatorFactory:
     # Reference: operators.py:423-579
     # ==================================================================
 
-    def make_gibbs_sample_source(self, object_selector: str, max_size: int,
-                                 _probe_skip: tuple = ()) -> Callable:
-        """``_probe_skip`` (benchmarks/source probes ONLY — entries break
-        sampling correctness): 'sel' replaces the random subset selection
-        with a key-dependent arange offset (dynamic indices, no
-        choice/top_k), 'back' skips the backward posterior pass, 'delta'
-        skips the count/pattern delta updates."""
+    def make_gibbs_sample_source(self, object_selector: str, max_size: int) -> Callable:
         cond = self.cond
         consts = self.consts
         N, K = consts.N, consts.K
@@ -1322,16 +1190,11 @@ class OperatorFactory:
             """Gathered-rows path for the capped selectors: O(m·F) work —
             posterior at the m subset rows only, exact delta-count update,
             no full-tensor streams (the reference's incremental-counts
-            behavior, recovered on TPU via static-size gathers)."""
+            behavior, recovered with static-size gathers)."""
             k_sel, k_draw = jax.random.split(key)
             counts_old = self._state_counts(state)
             state = self._put_counts(state, counts_old)
-            if "sel" in _probe_skip:
-                off = jax.random.randint(k_sel, (), 0, N)
-                obj_idx = (jnp.arange(k_cap, dtype=jnp.int32) + off) % N
-                valid = jnp.ones(k_cap, bool)
-            else:
-                obj_idx, valid = select_subset_idx(k_sel, state)
+            obj_idx, valid = select_subset_idx(k_sel, state)
             # f32 gathered rows: see Conditionals._resample_engine_rows
             feats_m = gather_const_rows(jnp.asarray(consts.features), obj_idx)
             na_m = gather_const_rows(na, obj_idx) > 0.5
@@ -1350,21 +1213,17 @@ class OperatorFactory:
             new_rows = jnp.where(valid[:, None, None], x, old_rows)
 
             log_q = cond._rows_logp(p, new_rows, valid, na_m)
-            if "delta" in _probe_skip:
-                counts_new, pat_new = counts_old, state.pat_counts
-            else:
-                counts_new = cond.delta_counts_rows(counts_old, state.clusters, obj_idx,
-                                                    valid, old_rows, new_rows, feats_m)
-                # clusters unchanged -> patterns unchanged; only rows move
-                pat_new = (state.pat_counts if "pat" in _probe_skip else
-                           self._delta_pat(state.pat_counts, obj_idx, valid,
-                                           hc0, hc0, old_rows, new_rows))
+            counts_new = cond.delta_counts_rows(counts_old, state.clusters, obj_idx,
+                                                valid, old_rows, new_rows, feats_m)
+            # clusters unchanged -> patterns unchanged; only rows move
+            pat_new = self._delta_pat(state.pat_counts, obj_idx, valid,
+                                      hc0, hc0, old_rows, new_rows)
             # source row write deferred to the MH kernel (source_rows);
             # the backward posterior below reads only counts_new.
             state_new = self._put_counts(
                 state._replace(pat_counts=pat_new), counts_new)
 
-            if self.sample_from_prior or "back" in _probe_skip:
+            if self.sample_from_prior:
                 p_back = p
             else:
                 p_back = cond.source_posterior_rows(state.clusters, state.weights,
@@ -1389,7 +1248,7 @@ class OperatorFactory:
             from the full-counts posterior and force-accepts — an
             approximation whose MH-corrected form (op_rows) collapses to
             ~zero acceptance at large F (the 20-row x 5000-feature q-gap
-            concentrates; SCALE10K.md). This variant restores a TRUE Gibbs
+            concentrates at the 10k x 5k scale point). This variant restores a TRUE Gibbs
             move: objects are resampled one at a time from their exact
             leave-self-out collapsed conditional (cells factor over
             features for a single object), with carried-count deltas
@@ -1433,7 +1292,7 @@ class OperatorFactory:
                 own0 = f_o * row_old[:, 0:1] * in_cl
                 eff0 = normalize(cl_counts[ko] - own0 + conc_cluster, axis=-1)
                 lh_c = [jnp.einsum("fs,fs->f", eff0, f_o,
-                                   preferred_element_type=jnp.float32)]
+                                   preferred_element_type=jnp.float32, precision=HIGHEST)]
                 in_gs, gcs = [], []
                 for c in range(n_conf):
                     gc = g_of[c, j]
@@ -1442,7 +1301,7 @@ class OperatorFactory:
                     effc = normalize(conf_counts[c, gc] - ownc + conc_conf[c, gc],
                                      axis=-1)
                     lh_c.append(jnp.einsum("fs,fs->f", effc, f_o,
-                                           preferred_element_type=jnp.float32))
+                                           preferred_element_type=jnp.float32, precision=HIGHEST))
                     in_gs.append(in_g)
                     gcs.append(gc)
                 lh = jnp.stack(lh_c, axis=-1)                   # (F, C)
@@ -1607,7 +1466,7 @@ class OperatorFactory:
             #  * op_rows — one-shot MH-corrected draw (reference-shaped,
             #    operators.py:423-579). Healthy acceptance at reference
             #    scale; collapses to ~0 acceptance at large F (the
-            #    m x F q-gap concentrates, SCALE10K.md).
+            #    m x F q-gap concentrates at the 10k x 5k scale point).
             #  * op_rows_sweep — exact sequential leave-self-out Gibbs,
             #    forced accept at any scale, but latency-bound (m
             #    sequential sub-steps), so it only wins where the MH
@@ -1663,10 +1522,10 @@ class OperatorFactory:
             """(F,) source log-lh from pattern counts (exact reordering
             of the per-object sum: log(w_sel/Z_pat) telescopes)."""
             logw = jnp.log(jnp.maximum(weights, TINY))           # (F, C)
-            z = jnp.einsum("pc,fc->pf", pat_bits, weights)       # (P, F)
+            z = jnp.einsum("pc,fc->pf", pat_bits, weights, precision=HIGHEST)       # (P, F)
             logz = jnp.log(jnp.maximum(z, TINY))
-            return (jnp.einsum("pfc,fc->f", cnt, logw)
-                    - jnp.einsum("pf,pf->f", cnt.sum(-1), logz))
+            return (jnp.einsum("pfc,fc->f", cnt, logw, precision=HIGHEST)
+                    - jnp.einsum("pf,pf->f", cnt.sum(-1), logz, precision=HIGHEST))
 
         def pointwise_prior(weights):
             return cond.post.weights_prior_pointwise(weights)
@@ -1690,7 +1549,7 @@ class OperatorFactory:
             # the patterns whose i1 and i2 bits are set (same indicator
             # sum as the old has_both einsum, reordered)
             both = pat_bits[:, i1] * pat_bits[:, i2]             # (P,)
-            counts = jnp.einsum("p,pfc->fc", both, cnt) + conc_w
+            counts = jnp.einsum("p,pfc->fc", both, cnt, precision=HIGHEST) + conc_w
             c1 = counts[:, i1] / self.Tp
             c2 = counts[:, i2] / self.Tp
 

@@ -1,7 +1,8 @@
 """Host-level MCMC orchestration: warm-up, sampling loop, MC3, logging.
 
 Counterpart of the reference's ``MCMCSetup`` + ``MCMC.generate_samples``
-(sbayes/mcmc_setup.py, sbayes/sampling/mcmc.py), redesigned for TPU:
+(sbayes/mcmc_setup.py, sbayes/sampling/mcmc.py), redesigned for an
+accelerator:
 
 * ALL chains (warm-up races, MC3 temperature ladders, plain ensembles) are
   one vmapped axis of a single compiled program. Per-chain temperatures are
@@ -175,7 +176,7 @@ class SamplerRuntime:
             return jitted(self.consts, keys, states, stats, T, Tp, n_steps,
                           _all_unit_temps(T, Tp))
 
-        call._jitted = jitted  # AOT lowering access (benchmarks/sharding_plan.py)
+        call._jitted = jitted  # AOT lowering access (sharding_plan.py, chip_smoke.py)
         return call
 
     def _build_run_chunk_trace(self):
@@ -342,6 +343,7 @@ class SamplerRuntime:
         def call(*args):
             return jitted(self.consts, *args)
 
+        call._jitted = jitted  # AOT lowering access (chip_smoke.py)
         return call
 
     def _build_init_chains(self):
@@ -390,7 +392,7 @@ class SamplerRuntime:
 
         Capability parity with the reference's ``log_contribution_per_cluster``
         columns (loggers.py:238-250): the reference re-scores a sample copy
-        holding only cluster i with ``source=None``. TPU variant with static
+        holding only cluster i with ``source=None``. Here, with static
         shapes: zero out the other cluster rows and use the source-
         marginalized mixture likelihood with posterior-mean effects; the
         per-cluster prior is the single-cluster size prior + that cluster's
@@ -440,11 +442,11 @@ class SamplerRuntime:
                                jnp.asarray(prior_temps, jnp.float32), n_steps)
 
     def shard_ensemble(self, n_chains: int, *trees, logger=None):
-        """Production multi-chip layout: split the chain axis of the given
-        chain-batched PyTrees over all available devices (VERDICT r2 #1:
-        the reference's distributed layer lives in its production path —
-        cli.py:104-109 run pool, mcmc_setup.py:274-282 MC3 processes — so
-        ours must too). No-op on a single device; kill switch
+        """Production multi-device layout: split the chain axis of the given
+        chain-batched PyTrees over all available devices (the reference's
+        distributed layer lives in its production path — cli.py:104-109
+        run pool, mcmc_setup.py:274-282 MC3 processes — so ours does too).
+        No-op on a single device; kill switch
         SBAYES_TPU_SHARDING=off. Donated buffers keep their sharding, so
         one placement before the sampling loop is enough."""
         from sbayes_tpu.parallel.mesh import auto_chain_mesh, shard_chain_batch
@@ -469,7 +471,7 @@ class SamplerRuntime:
 
     def measure_op_step_times(self, keys, states, temps, prior_temps,
                               n_steps: int = 20) -> np.ndarray:
-        """Per-operator wall time [s] per ensemble step (VERDICT r1 weak #6).
+        """Per-operator wall time [s] per ensemble step.
 
         The fused scan cannot time individual `lax.switch` branches, so we
         time each operator once per run with a dedicated single-branch
@@ -620,6 +622,8 @@ class MCMCSetup:
         n_clusters = self.config.model.clusters
         if not isinstance(n_clusters, int):
             raise ValueError("MCMCSetup needs an integer cluster count (CLI resolves lists).")
+        if self.config.results.log_likelihood and not self.config.mcmc.sample_from_prior:
+            LikelihoodLogger.require_h5py()
         self.model = Model(data, self.config.model)
         self.path_results: Path = experiment.path_results / f"K{self.model.n_clusters}"
         self.path_results.mkdir(exist_ok=True, parents=True)
@@ -787,7 +791,7 @@ class MCMCSetup:
         """Execute ALL requested run IDs as ONE vmapped chain ensemble.
 
         The reference executes `mcmc.runs` independent repetitions
-        sequentially (or via an OS process pool, cli.py:98-109); on TPU the
+        sequentially (or via an OS process pool, cli.py:98-109); here the
         whole batch of runs is a single chain axis — R runs cost barely
         more than one. Each run keeps its own results files and warm-up
         race. RNG streams differ from sequential `sample()` execution (one
@@ -984,7 +988,7 @@ class MCMCSetup:
         """Host memory telemetry (reference: mcmc.py:254-255, 363-364)."""
         from sbayes_tpu.utils import process_memory
 
-        self.logger.info(f"Memory usage: {process_memory(unit='MB')} MB")
+        self.logger.info(f"Peak memory usage: {process_memory(unit='MB')} MB")
 
     def _print_screen_log(self, i_step: int, likelihood: float, i_step_start: int = 0):
         time_per_million = (time.time() - self.t_start) / max(i_step - i_step_start, 1) * 1_000_000
@@ -1128,7 +1132,7 @@ class MCMCSetup:
                 f"({self.swap_attempts} attempts)"
             )
             # Per-rung (adjacent-pair) acceptance summary for tuning
-            # mc3.temperature_diff (VERDICT r3 weak #7): too-cold rungs
+            # mc3.temperature_diff: too-cold rungs
             # show ~0, too-tight ladders show ~1 everywhere.
             sm = np.asarray(jax.device_get(swap_matrix_dev))
             rung_rates = " ".join(

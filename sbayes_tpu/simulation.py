@@ -20,7 +20,6 @@ import os
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from sbayes_tpu.utils import (
     PathLike,
@@ -46,6 +45,8 @@ DEFAULT_CONFIG = {
 def load_canvas(canvas_path: PathLike, confounder_names) -> dict:
     """Read the simulation canvas CSV: columns id, x, y, cluster + one
     column per confounder; empty cells mean 'no group' (encoded 0)."""
+    import pandas as pd
+
     df = pd.read_csv(canvas_path, dtype=str, keep_default_na=False)
     for col in ["id", "x", "y", "cluster"]:
         if col not in df.columns:
@@ -224,6 +225,8 @@ class Simulation:
         feature_names = [f"f{i + 1}" for i in range(n_features)]
         for i, fname in enumerate(feature_names):
             out[fname] = self.features[:, i]
+        import pandas as pd
+
         pd.DataFrame(out).to_csv(self.path_results / "simulated_features.csv", index=False)
 
         states_per_feature = [

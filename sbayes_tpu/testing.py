@@ -1,11 +1,14 @@
 """Synthetic in-memory datasets + configs for benchmarks and harness entry.
 
 Generates data in the generative model's own terms (mixture of cluster and
-confounder effects) without touching the filesystem.
+confounder effects); ``write_reference_csvs`` writes such a dataset in the
+reference's CSV format for runs through the CLI.
 """
 from __future__ import annotations
 
+import csv
 from collections import OrderedDict
+from pathlib import Path
 
 import numpy as np
 
@@ -110,3 +113,38 @@ def synthetic_config(
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return SBayesConfig(**cfg)
+
+
+def write_reference_csvs(data: Data, directory) -> tuple[Path, Path]:
+    """Write ``data`` as the reference's ``features.csv`` (id, name, x, y,
+    one column per confounder that has a column, one per feature; blank =
+    NA) and ``feature_states.csv`` (one column of state names per
+    feature). Returns both paths."""
+    directory = Path(directory)
+    feats = data.features
+    conf_cols = [name for name, conf in data.confounders.items()
+                 if conf.group_names != ["<ALL>"]]
+    features_path = directory / "features.csv"
+    with open(features_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "name", "x", "y", *conf_cols, *feats.names])
+        for n in range(feats.n_objects):
+            groups = []
+            for name in conf_cols:
+                conf = data.confounders[name]
+                member = conf.group_assignment[:, n]
+                groups.append(conf.group_names[int(member.argmax())] if member.any() else "")
+            states = [feats.state_names[i_f][int(feats.values[n, i_f].argmax())]
+                      if feats.values[n, i_f].any() else ""
+                      for i_f in range(feats.n_features)]
+            x, y = data.objects.locations[n]
+            w.writerow([data.objects.id[n], data.objects.names[n], repr(float(x)),
+                        repr(float(y)), *groups, *states])
+    states_path = directory / "feature_states.csv"
+    n_rows = max(len(s) for s in feats.state_names)
+    with open(states_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(feats.names))
+        for r in range(n_rows):
+            w.writerow([s[r] if r < len(s) else "" for s in feats.state_names])
+    return features_path, states_path

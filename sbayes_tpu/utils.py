@@ -6,12 +6,13 @@ state encodings, graph helpers); everything device-side lives in
 """
 from __future__ import annotations
 
+import csv
+import math
 import unicodedata
 from pathlib import Path
 from typing import Sequence, Union
 
 import numpy as np
-import pandas as pd
 from numpy.typing import NDArray
 from scipy.optimize import linear_sum_assignment
 from scipy.special import betaln
@@ -132,25 +133,56 @@ def _ascii_fold(s: str) -> str:
     return unicodedata.normalize("NFKD", s).encode("ascii", "ignore").decode("ascii")
 
 
+# Cells read as NA (exact matches, before stripping), as in the reference.
+NA_STRINGS = ("", " ", "\t", "  ")
+
+
 def normalize_str(s):
-    if pd.isna(s):
+    """Strip and ASCII-fold a cell; NA (None or NaN) passes through."""
+    if s is None or (isinstance(s, float) and math.isnan(s)):
         return s
     return _ascii_fold(str.strip(str(s)))
 
 
-def read_data_csv(csv_path: PathLike) -> pd.DataFrame:
-    """Read a data CSV treating blank-ish strings as NA; unicode-normalize."""
-    na_values = ["", " ", "\t", "  "]
-    data = pd.read_csv(csv_path, na_values=na_values, keep_default_na=False, dtype=str)
-    data.columns = [_ascii_fold(c) for c in data.columns]
-    return data.map(normalize_str)
+def _read_csv_rows(csv_path: PathLike) -> list[list[str]]:
+    with open(csv_path, newline="", encoding="utf-8-sig") as f:
+        return [row for row in csv.reader(f) if row]
 
 
-def read_costs_from_csv(file: PathLike, logger=None) -> pd.DataFrame:
-    data = pd.read_csv(file, dtype=str, index_col=0)
+def read_csv_columns(csv_path: PathLike) -> dict[str, list]:
+    """Read a data CSV as ``{column: [cell, ...]}`` with the stdlib reader.
+
+    Column names and cells are ASCII-folded and stripped; cells in
+    ``NA_STRINGS`` become None. Short rows are padded with NA."""
+    rows = _read_csv_rows(csv_path)
+    header = [_ascii_fold(c) for c in rows[0]]
+    columns: dict[str, list] = {h: [] for h in header}
+    for row in rows[1:]:
+        row = row + [""] * (len(header) - len(row))
+        for h, v in zip(header, row):
+            columns[h].append(None if v in NA_STRINGS else normalize_str(v))
+    return columns
+
+
+def read_data_csv(csv_path: PathLike):
+    """``read_csv_columns`` as a pandas DataFrame (NA cells are None), for
+    the post-processing tools; the sampler itself does not need pandas."""
+    import pandas as pd
+
+    return pd.DataFrame(read_csv_columns(csv_path))
+
+
+def read_costs_from_csv(file: PathLike, logger=None):
+    """Read a cost matrix CSV: the header row names the columns, the first
+    column names the rows. Returns (row_names, column_names, (R, C) float
+    array)."""
+    rows = _read_csv_rows(file)
+    col_names = rows[0][1:]
+    row_names = [r[0] for r in rows[1:]]
+    values = np.asarray([[float(x) for x in r[1:]] for r in rows[1:]], dtype=float)
     if logger:
         logger.info(f"Geographical cost matrix read from {file}.")
-    return data
+    return row_names, col_names, values
 
 
 def range_like(a):
@@ -162,45 +194,42 @@ def range_like(a):
 # (reference behavior: sbayes/util.py:294-346)
 # ---------------------------------------------------------------------------
 
-def encode_states(features_raw: pd.DataFrame, feature_states: pd.DataFrame):
+def encode_states(features_raw: dict, feature_states: dict):
     """Encode raw categorical features as a one-hot boolean tensor.
 
-    Each column of ``feature_states`` lists the legal state labels of one
-    feature (shorter lists are NaN-padded); each column of ``features_raw``
-    holds the observed label per object. Observations are mapped to integer
-    state codes via ``pd.Categorical`` and scattered into a boolean
-    (n_objects, n_features, n_states) tensor in one fancy-index write per
-    feature; NA observations stay all-zero rows.
+    ``feature_states`` maps each feature to the column of its legal state
+    labels (shorter lists are NA-padded); ``features_raw`` maps each
+    feature to the observed label per object (``read_csv_columns``
+    output). NA observations stay all-zero rows.
 
     Returns (dict with 'values' / 'states' applicable-state mask /
     'state_names', n_NA). Behavior matches reference util.py:294-346.
     """
-    n_states = feature_states.shape[0]
-    n_objects = features_raw.shape[0]
-    columns = list(feature_states.columns)
-    if list(features_raw.columns) != columns:
-        features_raw = features_raw.loc[:, columns]
+    columns = list(feature_states)
+    n_states = len(feature_states[columns[0]]) if columns else 0
+    n_objects = len(features_raw[columns[0]]) if columns else 0
 
-    state_names = [feature_states[c].dropna().tolist() for c in columns]
+    state_names = [[s for s in feature_states[c] if s is not None] for c in columns]
     # applicable-state mask: state slot s is legal for feature f iff the
-    # feature_states cell is non-NaN
-    applicable_states = feature_states.notna().to_numpy().T  # (F, S)
+    # feature_states cell is not NA
+    applicable_states = np.asarray(
+        [[s is not None for s in feature_states[c]] for c in columns], dtype=bool
+    ).reshape(len(columns), n_states)
 
     values = np.zeros((n_objects, len(columns), n_states), dtype=bool)
     na_number = 0
     for i_f, col in enumerate(columns):
+        code_of = {name: i for i, name in enumerate(state_names[i_f])}
         observed = features_raw[col]
-        codes = pd.Categorical(observed, categories=state_names[i_f]).codes
-        is_na = observed.isna().to_numpy()
-        undefined = (codes < 0) & ~is_na
-        if undefined.any():
+        undefined = sorted({v for v in observed if v is not None and v not in code_of})
+        if undefined:
             raise ValueError(
                 f"Features of feature `{col}` contain states that are not defined "
-                f"in the feature_states file: {sorted(set(observed[undefined]))}"
+                f"in the feature_states file: {undefined}"
             )
-        rows = np.flatnonzero(codes >= 0)
-        values[rows, i_f, codes[rows]] = True
-        na_number += int(is_na.sum())
+        rows = [n for n, v in enumerate(observed) if v is not None]
+        values[rows, i_f, [code_of[observed[n]] for n in rows]] = True
+        na_number += n_objects - len(rows)
 
     features = {
         "values": values,
@@ -284,10 +313,13 @@ def timeit(fn):
     return wrapped
 
 
-def process_memory(pid: int | None = None, unit: str = "MB") -> int:
-    """RSS memory of a process (psutil)."""
-    import psutil
+def process_memory(unit: str = "MB") -> int:
+    """Peak resident memory of this process (stdlib ``resource``)."""
+    import resource
+    import sys
 
-    mem = psutil.Process(pid).memory_info().rss
+    mem = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    if sys.platform != "darwin":  # kilobytes everywhere but macOS
+        mem *= 1024
     shift = {"B": 0, "KB": 10, "MB": 20, "GB": 30, "TB": 40}[unit]
     return mem >> shift

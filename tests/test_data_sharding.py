@@ -93,13 +93,13 @@ def test_sharded_mh_step_runs(sharded_setup):
 
 
 def test_scale_shaped_2d_mesh_chunk(monkeypatch):
-    """The 10k x 5k execution shape scaled down (VERDICT r3 next #4):
+    """The 10k x 5k execution shape scaled down:
     feature-tiled kernels (feature_chunk set) on a 2-D chains x objects
     mesh. A multi-step production sampling chunk must execute, stay
     finite, and keep every carried invariant (counts, pattern counts,
     prior parts, log_lh) exactly consistent with a full recompute of the
-    gathered final states. The GSPMD collective plan is documented in
-    benchmarks/SCALE10K.md (benchmarks/sharding_plan.py extracts it)."""
+    gathered final states. benchmarks/sharding_plan.py extracts the GSPMD
+    collective plan."""
     monkeypatch.setenv("SBAYES_TPU_FEATURE_CHUNK", "16")
 
     from sbayes_tpu.model.model import Model

@@ -1,4 +1,6 @@
 """Smoke test: build the toy model, initialize, run MCMC steps jitted."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -8,7 +10,7 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.smoke
 
-TOY_CONFIG = "/root/reference/test/test_files/config.yaml"
+TOY_CONFIG = Path(__file__).parent / "fixtures" / "config.yaml"
 
 
 @pytest.fixture(scope="module")
@@ -29,9 +31,9 @@ def test_model_shapes(toy_model):
     assert c.N == 5 and c.F == 2 and c.K == 1
     assert c.C == 3  # cluster + universal + family
     assert tuple(c.conf_names) == ("universal", "family")
-    # family prior: fam1 has dirichlet params (+1 initial counts)
+    # family prior: famA has dirichlet params (+1 initial counts)
     i_fam = c.conf_names.index("family")
-    i_fam1 = c.group_names["family"].index("fam1")
+    i_fam1 = c.group_names["family"].index("famA")
     # F1: A=8, B=2 -> +1 -> 9, 3
     np.testing.assert_allclose(c.conc_conf[i_fam, i_fam1, 0, :2], [9.0, 3.0])
 

@@ -159,7 +159,7 @@ def test_dirichlet_categorical_delta_matches_full_difference(rng):
 
 
 def test_gather_scatter_rows_engines(monkeypatch):
-    """gather_rows/scatter_rows: the one-hot MXU form and the native
+    """gather_rows/scatter_rows: the one-hot matmul form and the native
     gather/scatter agree with direct indexing, incl. the padded index N
     (gather -> all-False row; scatter -> dropped) and vmap batching."""
     import jax

@@ -111,7 +111,7 @@ def test_boruvka_batch_vmap(rng):
 
 
 def test_prim_mm_matches_scipy_and_prim(rng):
-    """The MXU row-select Prim (cluster_mst_stats_prim) == scipy == the
+    """The matmul row-select Prim (cluster_mst_stats_prim) == scipy == the
     gather-form Prim, including size<=1 clusters and tie-heavy inputs."""
     import jax
 

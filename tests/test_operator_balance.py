@@ -1,6 +1,6 @@
 """Detailed-balance & stationarity checks for individual operators.
 
-Three layers of evidence (VERDICT round-1, weak #1/#5):
+Three layers of evidence:
 
 1. A deterministic reverse-density identity for the ClusterJump source
    resample: the reported ``log_q_back`` must equal the forward proposal

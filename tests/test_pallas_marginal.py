@@ -1,6 +1,11 @@
-"""Pallas fused marginal kernel vs the XLA closed-form path (interpret
-mode on CPU; the real-TPU compile is exercised by the benchmark probes)."""
-import os
+"""The feature-tiled membership marginal (``lax.map`` over F-tiles, the
+path every model with N·F above the tiling cutover runs) against the
+untiled single-pass form on the same model, state and RNG stream.
+
+The two differ only in ``ModelConstants.feature_chunk``; everything the
+marginal computes is feature-separable given the counts, so they agree to
+f32 summation order."""
+import dataclasses
 
 import numpy as np
 import pytest
@@ -8,368 +13,142 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-
-@pytest.fixture(scope="module")
-def setup():
-    os.environ["SBAYES_TPU_FEATURE_CHUNK"] = "4"
-    os.environ["SBAYES_TPU_PALLAS_MARGINAL"] = "1"
-    os.environ["SBAYES_TPU_PALLAS_INTERPRET"] = "1"
-    # keep the f32 matmul for tight-tolerance parity vs the XLA path;
-    # the bf16 variant has its own tolerance test below
-    os.environ["SBAYES_TPU_PALLAS_BF16MM"] = "0"
-    try:
-        from sbayes_tpu.model.model import Model
-        from sbayes_tpu.model.posterior import Posterior
-        from sbayes_tpu.sampling.conditionals import Conditionals
-        from sbayes_tpu.sampling.operators import OperatorFactory
-        from sbayes_tpu.sampling.prior_sampling import generate_prior_sample
-        from sbayes_tpu.testing import synthetic_config, synthetic_data
-
-        data = synthetic_data(n_objects=48, n_features=8, n_states=3,
-                              n_families=2, seed=5)
-        config = synthetic_config(n_clusters=2, geo_prior="uniform")
-        model = Model(data, config.model)
-        assert model.consts.feature_chunk == 4
-        assert (model.consts.features_tl is not None
-                or model.consts.features_idx_tl is not None), \
-            "pallas layout not built"
-        cond = Conditionals(Posterior(model.consts), 1.2, 1.5)
-        fact = OperatorFactory(cond)
-        state = generate_prior_sample(jax.random.PRNGKey(4), cond)
-        state = cond.post.fill_state(state)
-        yield model, cond, fact, state
-    finally:
-        os.environ.pop("SBAYES_TPU_FEATURE_CHUNK", None)
-        os.environ.pop("SBAYES_TPU_PALLAS_MARGINAL", None)
-        os.environ.pop("SBAYES_TPU_PALLAS_INTERPRET", None)
-        os.environ.pop("SBAYES_TPU_PALLAS_BF16MM", None)
+TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("heat", [False, True])
-def test_pallas_marginal_matches_xla(setup, heat):
-    """The ratio-variant kernel (one effect row, single log per element)
-    reproduces the XLA closed-form log-odds log_m1 - log_m0 — the only
-    quantity callers consume (through a sigmoid)."""
-    model, cond, fact, state = setup
-    assert fact._pm(ratio=True, heat=heat) is not None
-    avail = jnp.ones(model.consts.N, bool)
-    counts = (state.cl_counts, state.conf_counts)
-
-    odds = fact._cluster_log_odds(state, 1, avail, counts=counts,
-                                  heat_effect_lh=heat)
-    # reference: the XLA closed-form path (pallas disabled)
-    fact._pm_cache = None
-    x_odds = fact._cluster_log_odds(state, 1, avail, counts=counts,
-                                    heat_effect_lh=heat)
-    x0, x1 = fact._log_marginal_with_without(state, 1, avail, counts=counts,
-                                             heat_effect_lh=heat)
-    fact._pm_cache = False
-    np.testing.assert_allclose(np.asarray(odds), np.asarray(x_odds),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(odds), np.asarray(x1 - x0),
-                               rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("heat", [False, True])
-def test_pallas_marginal_both_mode_matches_xla(setup, heat):
-    """The two-output variant (jump path) still reproduces BOTH absolute
-    marginals of the XLA path, for either heat specialization."""
-    from sbayes_tpu.model.math import normalize
-    from sbayes_tpu.ops.pallas_marginal import tile_layout_eff, wh_layout
-
-    model, cond, fact, state = setup
-    c = model.consts
-    counts = (state.cl_counts, state.conf_counts)
-    avail = jnp.ones(c.N, bool)
-
-    pm = fact._pm(ratio=False, heat=heat)
-    assert pm is not None
-    cl_counts, conf_counts = counts
-    unif = jnp.asarray(c.unif_conc)
-    p_eff = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + cl_counts[1] / fact.T, axis=-1)
-    conf_eff = normalize(conf_counts + jnp.asarray(c.conc_conf), axis=-1)
-    row = tile_layout_eff(p_eff, c.F).reshape(1, -1)
-    p_eff_tl = jnp.concatenate([row, row], axis=0)
-    wh_tl = wh_layout((state.weights ** (1.0 / fact.Tp)).T, c.F)
-    hc = cond.post.has_components(state.clusters)
-    hc_flip = hc.at[:, 0].set(~hc[:, 0])
-    incl = hc[:, 0].astype(jnp.float32)[:, None]
-    invT = (1.0 / fact.T) * jnp.ones((), jnp.float32) if heat else None
-    m0, m1 = pm(p_eff_tl, wh_tl, hc.astype(jnp.float32),
-                hc_flip.astype(jnp.float32), incl,
-                tile_layout_eff(conf_eff, c.F), invT)
-
-    fact._pm_cache = None
-    x0, x1 = fact._log_marginal_with_without(state, 1, avail, counts=counts,
-                                             heat_effect_lh=heat)
-    fact._pm_cache = False
-    np.testing.assert_allclose(np.asarray(m0) / fact.T, np.asarray(x0),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(m1) / fact.T, np.asarray(x1),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_pallas_jump_logspace_matches_xla(setup, monkeypatch):
-    """The log-space jump (two_eff ratio kernel: two DISTINCT effect rows,
-    single-log output) reproduces the XLA log-space path: same RNG stream
-    -> identical proposals, matching q densities."""
-    model, cond, fact, state = setup
-    monkeypatch.setenv("SBAYES_TPU_JUMP_LOGSPACE", "1")
-
-    op = fact.make_cluster_jump(gibbsish=True)
-    key = jax.random.PRNGKey(78)
-    res_pallas = op(key, state)
-
-    fact._pm_cache = None  # force the XLA tiled path
-    op_xla = fact.make_cluster_jump(gibbsish=True)
-    res_xla = op_xla(key, state)
-    fact._pm_cache = False
-
-    np.testing.assert_array_equal(np.asarray(res_pallas.state.clusters),
-                                  np.asarray(res_xla.state.clusters))
-    np.testing.assert_allclose(float(res_pallas.log_q), float(res_xla.log_q),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(float(res_pallas.log_q_back), float(res_xla.log_q_back),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_pallas_jump_matches_xla(setup):
-    """The jump operator's fused two-effect marginal pass (kernel rows
-    (eff_src, eff_tgt), hc_flip == hc) reproduces the XLA tiled path:
-    same RNG stream -> identical proposals, matching q densities."""
-    model, cond, fact, state = setup
-
-    op = fact.make_cluster_jump(gibbsish=True)
-    key = jax.random.PRNGKey(77)
-    res_pallas = op(key, state)
-
-    fact._pm_cache = None  # force the XLA tile path
-    op_xla = fact.make_cluster_jump(gibbsish=True)
-    res_xla = op_xla(key, state)
-    fact._pm_cache = False
-
-    np.testing.assert_array_equal(np.asarray(res_pallas.state.clusters),
-                                  np.asarray(res_xla.state.clusters))
-    np.testing.assert_allclose(float(res_pallas.log_q), float(res_xla.log_q),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(float(res_pallas.log_q_back), float(res_xla.log_q_back),
-                               rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("ratio,heat,two_eff", [
-    (True, False, False), (True, True, False), (False, False, False),
-    (False, True, False), (True, False, True),
-])
-def test_pallas_fusedmix_matches_unfused(setup, ratio, heat, two_eff):
-    """The fused-components variant (one stacked weight-prescaled
-    confounder matmul) is exact vs the per-confounder kernel, for every
-    static specialization."""
-    from sbayes_tpu.model.math import normalize
-    from sbayes_tpu.ops.pallas_marginal import (
-        make_pallas_marginal, tile_layout_eff, wh_layout)
-
-    model, cond, fact, state = setup
-    c = model.consts
-    pm_f = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, fusedmix=True)
-    pm_u = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, fusedmix=False)
-    assert pm_f is not None and pm_u is not None
-
-    unif = jnp.asarray(c.unif_conc)
-    p_eff = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[1] / fact.T, axis=-1)
-    p_eff2 = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[0] / fact.T, axis=-1)
-    conf_eff = normalize(state.conf_counts + jnp.asarray(c.conc_conf), axis=-1)
-    row = tile_layout_eff(p_eff, c.F).reshape(1, -1)
-    if ratio and not two_eff:
-        p_eff_tl = row
-    else:
-        row2 = tile_layout_eff(p_eff2, c.F).reshape(1, -1)
-        p_eff_tl = jnp.concatenate([row, row2], axis=0)
-    wh_tl = wh_layout((state.weights ** (1.0 / fact.Tp)).T, c.F)
-    hc = cond.post.has_components(state.clusters).astype(jnp.float32)
-    hc_flip = hc if two_eff else hc.at[:, 0].set(1.0 - hc[:, 0])
-    incl = hc[:, 0:1]
-    invT = (1.0 / fact.T) * jnp.ones((), jnp.float32) if heat else None
-    conf_eff_tl = tile_layout_eff(conf_eff, c.F)
-
-    out_f = pm_f(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, invT)
-    out_u = pm_u(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, invT)
-    np.testing.assert_allclose(np.asarray(out_f), np.asarray(out_u),
-                               rtol=2e-5, atol=2e-5)
-
-
-@pytest.mark.parametrize("ratio,heat,two_eff", [
-    (True, False, False), (False, False, False), (True, False, True),
-])
-def test_pallas_bf16mm_close_to_f32(setup, ratio, heat, two_eff):
-    """The bf16-matmul variant (confounder mixture operands rounded to
-    bf16, f32 accumulate) tracks the f32 kernel to bf16 rounding. The
-    tolerance is per-feature rounding (~2^-9 relative on the confounder
-    BACKGROUND term, partially cancelling between the cur/flip
-    mixtures) accumulated over F features — loose in absolute terms but
-    proposal-shaping only."""
-    from sbayes_tpu.model.math import normalize
-    from sbayes_tpu.ops.pallas_marginal import (
-        make_pallas_marginal, tile_layout_eff, wh_layout)
-
-    model, cond, fact, state = setup
-    c = model.consts
-    pm_b = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, mm_bf16=True)
-    pm_f = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, mm_bf16=False)
-    assert pm_b is not None and pm_f is not None
-
-    unif = jnp.asarray(c.unif_conc)
-    p_eff = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[1] / fact.T, axis=-1)
-    p_eff2 = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[0] / fact.T, axis=-1)
-    conf_eff = normalize(state.conf_counts + jnp.asarray(c.conc_conf), axis=-1)
-    row = tile_layout_eff(p_eff, c.F).reshape(1, -1)
-    if ratio and not two_eff:
-        p_eff_tl = row
-    else:
-        row2 = tile_layout_eff(p_eff2, c.F).reshape(1, -1)
-        p_eff_tl = jnp.concatenate([row, row2], axis=0)
-    wh_tl = wh_layout((state.weights ** (1.0 / fact.Tp)).T, c.F)
-    hc = cond.post.has_components(state.clusters).astype(jnp.float32)
-    hc_flip = hc if two_eff else hc.at[:, 0].set(1.0 - hc[:, 0])
-    incl = hc[:, 0:1]
-    conf_eff_tl = tile_layout_eff(conf_eff, c.F)
-
-    out_b = pm_b(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, None)
-    out_f = pm_f(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, None)
-    tol = 6e-3 * c.F  # per-feature bf16 rounding bound, summed
-    np.testing.assert_allclose(np.asarray(out_b), np.asarray(out_f), atol=tol)
-    # and it should be much better than the bound in practice
-    gap = np.max(np.abs(np.asarray(out_b) - np.asarray(out_f)))
-    assert gap < 0.1, gap
-
-
-@pytest.mark.parametrize("ratio,heat,two_eff", [
-    (True, False, False), (True, True, False), (False, False, False),
-    (False, True, False), (True, False, True),
-])
-def test_pallas_grouplog_matches_per_lane_log(setup, ratio, heat, two_eff):
-    """The grouped-log tail (_sum_log_grouped: integer exponent sums +
-    logs of 8-lane mantissa products, no per-lane divides) reproduces
-    the per-lane log/divide tail to rounding, for every kernel variant."""
-    from sbayes_tpu.model.math import normalize
-    from sbayes_tpu.ops.pallas_marginal import (
-        make_pallas_marginal, tile_layout_eff, wh_layout)
-
-    model, cond, fact, state = setup
-    c = model.consts
-    pm_g = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, grouplog=True)
-    pm_l = make_pallas_marginal(c, interpret=True, ratio=ratio, heat=heat,
-                                two_eff=two_eff, grouplog=False)
-    assert pm_g is not None and pm_l is not None
-
-    unif = jnp.asarray(c.unif_conc)
-    p_eff = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[1] / fact.T, axis=-1)
-    p_eff2 = normalize(
-        unif + (jnp.asarray(c.conc_cluster) - unif) / fact.Tp
-        + state.cl_counts[0] / fact.T, axis=-1)
-    conf_eff = normalize(state.conf_counts + jnp.asarray(c.conc_conf), axis=-1)
-    row = tile_layout_eff(p_eff, c.F).reshape(1, -1)
-    if ratio and not two_eff:
-        p_eff_tl = row
-    else:
-        row2 = tile_layout_eff(p_eff2, c.F).reshape(1, -1)
-        p_eff_tl = jnp.concatenate([row, row2], axis=0)
-    wh_tl = wh_layout((state.weights ** (1.0 / fact.Tp)).T, c.F)
-    hc = cond.post.has_components(state.clusters).astype(jnp.float32)
-    hc_flip = hc if two_eff else hc.at[:, 0].set(1.0 - hc[:, 0])
-    incl = hc[:, 0:1]
-    invT = (1.0 / fact.T) * jnp.ones((), jnp.float32) if heat else None
-    conf_eff_tl = tile_layout_eff(conf_eff, c.F)
-
-    out_g = pm_g(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, invT)
-    out_l = pm_l(p_eff_tl, wh_tl, hc, hc_flip, incl, conf_eff_tl, invT)
-    np.testing.assert_allclose(np.asarray(out_g), np.asarray(out_l),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_sum_log_ratio_grouped_oracle(rng=np.random.default_rng(0)):
-    """_sum_log_ratio_grouped == sum(log(num/den)) on random positive
-    rows incl. extreme magnitudes down at the TINY clamp, and exact
-    cancellation when num == den bitwise."""
-    from sbayes_tpu.ops.pallas_marginal import _sum_log_ratio_grouped
-
-    num = np.exp(rng.uniform(-60, 60, size=(16, 512))).astype(np.float32)
-    den = np.exp(rng.uniform(-60, 60, size=(16, 512))).astype(np.float32)
-    num[1, :7] = 1e-35
-    den[2, :3] = 3e38
-    den[3] = num[3]  # identical rows -> exactly 0
-    got = np.asarray(jax.jit(_sum_log_ratio_grouped)(
-        jnp.asarray(num), jnp.asarray(den)))[:, 0]
-    want = (np.log(num.astype(np.float64))
-            - np.log(den.astype(np.float64))).sum(axis=1)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-3)
-    assert got[3] == 0.0
-
-
-def test_pallas_idx_layout_matches_onehot(monkeypatch):
-    """The int8 index feature layout (in-kernel expansion) reproduces the
-    one-hot bf16 tile layout's log-odds, including NA handling."""
-    monkeypatch.setenv("SBAYES_TPU_FEATURE_CHUNK", "4")
-    monkeypatch.setenv("SBAYES_TPU_PALLAS_MARGINAL", "1")
-    monkeypatch.setenv("SBAYES_TPU_PALLAS_INTERPRET", "1")
-
-    from sbayes_tpu.model.model import Model
+def _factory(consts, T, Tp):
     from sbayes_tpu.model.posterior import Posterior
     from sbayes_tpu.sampling.conditionals import Conditionals
     from sbayes_tpu.sampling.operators import OperatorFactory
+
+    return OperatorFactory(Conditionals(Posterior(consts), T, Tp))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    from sbayes_tpu.model.model import Model
     from sbayes_tpu.sampling.prior_sampling import generate_prior_sample
     from sbayes_tpu.testing import synthetic_config, synthetic_data
 
     data = synthetic_data(n_objects=48, n_features=8, n_states=3,
                           n_families=2, seed=5)
     config = synthetic_config(n_clusters=2, geo_prior="uniform")
+    model = Model(data, config.model)
+    untiled = model.consts
+    assert untiled.feature_chunk is None
+    tiled = dataclasses.replace(untiled, feature_chunk=4)
+    fact_t = _factory(tiled, 1.2, 1.5)
+    fact_u = _factory(untiled, 1.2, 1.5)
+    state = generate_prior_sample(jax.random.PRNGKey(4), fact_u.cond)
+    state = fact_u.cond.post.fill_state(state)
+    return tiled, untiled, fact_t, fact_u, state
 
-    def build(idx: bool):
-        monkeypatch.setenv("SBAYES_TPU_PALLAS_IDX", "1" if idx else "0")
-        model = Model(data, config.model)
-        cond = Conditionals(Posterior(model.consts), 1.2, 1.5)
-        fact = OperatorFactory(cond)
-        state = generate_prior_sample(jax.random.PRNGKey(4), cond)
-        state = cond.post.fill_state(state)
-        return model, fact, state
 
-    model_i, fact_i, state_i = build(idx=True)
-    assert model_i.consts.features_idx_tl is not None
-    assert model_i.consts.features_tl is None
-    model_o, fact_o, state_o = build(idx=False)
-    assert model_o.consts.features_tl is not None
+@pytest.mark.parametrize("heat", [False, True])
+def test_pallas_marginal_matches_xla(setup, heat):
+    """Tiled log-odds log_m1 - log_m0 (the quantity every gibbsish
+    proposal feeds into a sigmoid) match the untiled log-odds and the
+    difference of the untiled absolute marginals."""
+    tiled, untiled, fact_t, fact_u, state = setup
+    avail = jnp.ones(tiled.N, bool)
+    counts = (state.cl_counts, state.conf_counts)
 
-    avail = jnp.ones(model_i.consts.N, bool)
-    for heat in (False, True):
-        odds_i = fact_i._cluster_log_odds(
-            state_i, 1, avail, counts=(state_i.cl_counts, state_i.conf_counts),
-            heat_effect_lh=heat)
-        odds_o = fact_o._cluster_log_odds(
-            state_o, 1, avail, counts=(state_o.cl_counts, state_o.conf_counts),
-            heat_effect_lh=heat)
-        np.testing.assert_allclose(np.asarray(odds_i), np.asarray(odds_o),
-                                   rtol=2e-4, atol=2e-4)
+    odds = fact_t._cluster_log_odds(state, 1, avail, counts=counts,
+                                    heat_effect_lh=heat)
+    u_odds = fact_u._cluster_log_odds(state, 1, avail, counts=counts,
+                                      heat_effect_lh=heat)
+    u0, u1 = fact_u._log_marginal_with_without(state, 1, avail, counts=counts,
+                                               heat_effect_lh=heat)
+    np.testing.assert_allclose(np.asarray(odds), np.asarray(u_odds), **TOL)
+    np.testing.assert_allclose(np.asarray(odds), np.asarray(u1 - u0), **TOL)
 
-    # both-mode (jump) variant too
-    m0_i, m1_i = fact_i._log_marginal_with_without(
-        state_i, 0, avail, counts=(state_i.cl_counts, state_i.conf_counts))
-    m0_o, m1_o = fact_o._log_marginal_with_without(
-        state_o, 0, avail, counts=(state_o.cl_counts, state_o.conf_counts))
-    np.testing.assert_allclose(np.asarray(m0_i), np.asarray(m0_o), rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(m1_i), np.asarray(m1_o), rtol=2e-4, atol=2e-4)
+
+@pytest.mark.parametrize("heat", [False, True])
+def test_pallas_marginal_both_mode_matches_xla(setup, heat):
+    """Both tiled absolute marginals (the form the EPS-flooring jump
+    consumes) match the untiled ones, for either heat specialization."""
+    tiled, untiled, fact_t, fact_u, state = setup
+    avail = jnp.ones(tiled.N, bool)
+    counts = (state.cl_counts, state.conf_counts)
+
+    t0, t1 = fact_t._log_marginal_with_without(state, 1, avail, counts=counts,
+                                               heat_effect_lh=heat)
+    u0, u1 = fact_u._log_marginal_with_without(state, 1, avail, counts=counts,
+                                               heat_effect_lh=heat)
+    np.testing.assert_allclose(np.asarray(t0), np.asarray(u0), **TOL)
+    np.testing.assert_allclose(np.asarray(t1), np.asarray(u1), **TOL)
+
+
+def _assert_same_move(res_t, res_u):
+    np.testing.assert_array_equal(np.asarray(res_t.state.clusters),
+                                  np.asarray(res_u.state.clusters))
+    np.testing.assert_allclose(float(res_t.log_q), float(res_u.log_q), **TOL)
+    np.testing.assert_allclose(float(res_t.log_q_back), float(res_u.log_q_back),
+                               **TOL)
+
+
+def test_pallas_jump_logspace_matches_xla(setup, monkeypatch):
+    """The log-space jump (sigmoid of log_jump - log_stay) tiled and
+    untiled: same RNG stream -> identical proposals, matching q
+    densities."""
+    tiled, untiled, fact_t, fact_u, state = setup
+    monkeypatch.setenv("SBAYES_TPU_JUMP_LOGSPACE", "1")
+    key = jax.random.PRNGKey(78)
+    _assert_same_move(fact_t.make_cluster_jump(gibbsish=True)(key, state),
+                      fact_u.make_cluster_jump(gibbsish=True)(key, state))
+
+
+def test_pallas_jump_matches_xla(setup, monkeypatch):
+    """The EPS-flooring jump (exponentiated stay/jump marginals) tiled and
+    untiled: same RNG stream -> identical proposals, matching q
+    densities."""
+    tiled, untiled, fact_t, fact_u, state = setup
+    monkeypatch.setenv("SBAYES_TPU_JUMP_LOGSPACE", "0")
+    key = jax.random.PRNGKey(77)
+    _assert_same_move(fact_t.make_cluster_jump(gibbsish=True)(key, state),
+                      fact_u.make_cluster_jump(gibbsish=True)(key, state))
+
+
+# (ratio, heat, two_eff): the five static specializations the membership
+# marginal is compiled in — gibbsish log-odds, wide raw-probs log-odds,
+# both absolute marginals unheated and heated, and the two-effect
+# log-space jump.
+SPECIALIZATIONS = [
+    (True, False, False), (True, True, False), (False, False, False),
+    (False, True, False), (True, False, True),
+]
+
+
+@pytest.mark.parametrize("ratio,heat,two_eff", SPECIALIZATIONS)
+def test_tiled_marginal_vmapped_ladder_matches_untiled(setup, monkeypatch,
+                                                       ratio, heat, two_eff):
+    """Each specialization, jitted and vmapped over a three-rung
+    temperature ladder with TRACED per-chain temperatures (the MC3
+    program's shape): tiled agrees with untiled on every rung."""
+    tiled, untiled, _, _, state = setup
+    monkeypatch.setenv("SBAYES_TPU_JUMP_LOGSPACE", "1")
+    temps = jnp.asarray([1.0, 1.3, 1.9], jnp.float32)
+    keys = jax.random.split(jax.random.PRNGKey(11), temps.shape[0])
+    avail = jnp.ones(tiled.N, bool)
+    counts = (state.cl_counts, state.conf_counts)
+
+    def run(consts):
+        def one(T, key):
+            fact = _factory(consts, T, T)
+            if two_eff:
+                res = fact.make_cluster_jump(gibbsish=True)(key, state)
+                return (res.state.clusters.astype(jnp.float32),
+                        res.log_q, res.log_q_back)
+            if ratio:
+                return (fact._cluster_log_odds(state, 0, avail, counts=counts,
+                                               heat_effect_lh=heat),)
+            return fact._log_marginal_with_without(state, 0, avail, counts=counts,
+                                                   heat_effect_lh=heat)
+
+        return jax.jit(jax.vmap(one))(temps, keys)
+
+    out_t, out_u = run(tiled), run(untiled)
+    for a, b in zip(out_t, out_u):
+        assert a.shape[0] == temps.shape[0]
+        assert np.all(np.isfinite(np.asarray(a)))
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), **TOL)

@@ -106,9 +106,9 @@ def _run_mc3(rt, states, n_chains, n_steps, mesh=None):
 
 def test_sharded_mc3_equals_single_device(small_runtime):
     """The fused MC3 chunk (subchains + in-scan swap permutation of the
-    chain axis — a cross-chip collective under sharding) produces bitwise
-    the same ladder on an 8-device mesh as on one device (VERDICT r2
-    missing #2: the swap collective itself must be exercised sharded)."""
+    chain axis — a cross-device collective under sharding) produces bitwise
+    the same ladder on an 8-device mesh as on one device (the swap
+    collective itself must be exercised sharded)."""
     from sbayes_tpu.parallel.mesh import chain_mesh
 
     rt = small_runtime
